@@ -33,10 +33,13 @@ def setup(n_poses: int = 256, seed: int = 0):
     """
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from pose_refine.platform import enable_compile_cache
+
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
-    from pose_refine_tpu import geometry, mesh
+    from pose_refine import geometry, mesh
 
     model = mesh.load_benchmark_model()
     tris = jnp.asarray(model.tris[mesh.morton_order(model.tris)])
@@ -54,35 +57,29 @@ def setup(n_poses: int = 256, seed: int = 0):
     d_t = rng.uniform(-20, 20, (n_poses, 3)).astype(np.float32)
     poses = np.asarray(
         geometry.pose_from_Rt(
-            jnp.einsum("nij,jk->nik", d_rot, truth[:3, :3]), truth[:3, 3] + d_t
+            np.einsum("nij,jk->nik", d_rot, truth[:3, :3]), truth[:3, 3] + d_t
         )
     )
     return model, tris, K, proj, truth, poses
 
 
 def scene_render(tris, truth, proj):
-    """The observed scene: a full-res render of the truth pose (pallas on
-    TPU - the measured configuration; XLA gather raster on CPU so studies
-    can smoke-test their code paths off-TPU)."""
+    """The observed scene: a full-res render of the truth pose with the
+    platform's rasterizer (the GPU kernel; XLA scatter on the CPU, so
+    studies can smoke-test their code paths there)."""
     import jax
     import jax.numpy as jnp
 
-    from pose_refine_tpu.utils.sync import sync
-
-    if jax.default_backend() == "cpu":
-        from pose_refine_tpu.ops.rasterize import render
-
-        return np.asarray(sync(render(tris, jnp.asarray(truth)[None], W, H, proj)))[0]
-    from pose_refine_tpu.ops.rasterize_pallas import rasterize_pallas
+    from pose_refine.ops.rasterize import render
 
     return np.asarray(
-        sync(rasterize_pallas(tris, jnp.asarray(truth)[None], W, H, proj))
+        jax.block_until_ready(render(tris, jnp.asarray(truth)[None], W, H, proj))
     )[0]
 
 
 def time_median(fn, iters: int = 5):
     """Warm once, then median of `iters` sync-fenced wall-clock runs."""
-    from pose_refine_tpu.utils.sync import sync
+    from jax import block_until_ready as sync
 
     out = sync(fn())
     ts = []

@@ -4,10 +4,10 @@ Two levels, on the failure-parity workload (64 random hypotheses around a
 LINEMOD viewpoint of obj_06 @ 640x480):
 
 1. IMPLEMENTATION parity - identical inputs (same lifted clouds, same scene)
-   through (a) the TPU jitted ICP and (b) the C++ reference-algorithm
+   through (a) the jitted ICP and (b) the C++ reference-algorithm
    baseline (native/cpu_baseline.cpp). This isolates the ICP math;
    target ADD <= 1e-3 m = 1.0 mm over the obj_06 vertices.
-2. PIPELINE parity - each side's full pipeline (TPU: pallas render + window
+2. PIPELINE parity - each side's full pipeline (device: raster kernel + window
    lift; CPU: scanline render + scan compaction). Render/lift differences
    make this looser; reported for context.
 
@@ -15,14 +15,16 @@ Reference accuracy criterion: /root/reference/test.cpp:177-192.
 Results recorded in PARITY.md.
 """
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from pose_refine.platform import enable_compile_cache
+
+enable_compile_cache()
 import jax.numpy as jnp, numpy as np
-import pose_refine_tpu as prt
-from pose_refine_tpu import geometry, icp as icp_mod, mesh, native
-from pose_refine_tpu.ops.rasterize_pallas import rasterize_pallas
-from pose_refine_tpu.ops.depth_to_cloud import depth_to_cloud
-from pose_refine_tpu.utils.metrics import add_error, adds_error, rotation_angle_deg
-from pose_refine_tpu.utils.sync import sync
+import pose_refine as prt
+from pose_refine import geometry, icp as icp_mod, mesh, native
+from pose_refine.ops.rasterize import render
+from pose_refine.ops.depth_to_cloud import depth_to_cloud
+from pose_refine.utils.metrics import add_error, adds_error, rotation_angle_deg
+from jax import block_until_ready as sync
 
 W, H, N = 640, 480, 64
 model = mesh.load_benchmark_model()
@@ -39,14 +41,14 @@ poses = np.asarray(geometry.pose_from_Rt(
     jnp.einsum("nij,jk->nik", d_rot, truth[:3, :3]),
     truth[:3, 3] + rng.uniform(-20, 20, (N, 3)).astype(np.float32)))
 
-scene_depth = np.asarray(sync(rasterize_pallas(tris, jnp.asarray(truth)[None], W, H, proj)))[0]
+scene_depth = np.asarray(sync(render(tris, jnp.asarray(truth)[None], W, H, proj)))[0]
 refiner = prt.PoseRefiner(model, K=K, width=W, height=H, max_points=8192)
 refiner.set_scene_depth(scene_depth)
 scene = refiner.scene
 
 # ---- level 1: implementation parity (identical clouds + scene) ----
 # clouds rendered per-hypothesis by the SAME renderer for both sides
-dep = np.asarray(sync(rasterize_pallas(tris, jnp.asarray(poses), W, H, proj)))
+dep = np.asarray(sync(render(tris, jnp.asarray(poses), W, H, proj)))
 clouds, valids = [], []
 for i in range(N):
     c, v, _ = depth_to_cloud(dep[i], K, max_points=32768)
@@ -55,7 +57,7 @@ clouds = np.stack(clouds); valids = np.stack(valids)
 
 res, _ = icp_mod.icp_point_to_plane_batch(
     jax.device_put(jnp.asarray(clouds)), jax.device_put(jnp.asarray(valids)), scene)
-T_tpu = np.asarray(sync(res.transformation))
+T_dev = np.asarray(sync(res.transformation))
 
 T_ref, fit_ref, rmse_ref = native.cpu_icp_baseline(
     clouds, valids, np.asarray(scene.pcd), np.asarray(scene.normal), K)
@@ -65,15 +67,15 @@ def compose(T_icp):
     T_mm[:, :3, 3] *= 1000.0
     return np.einsum("nij,njk->nik", T_mm, poses)
 
-final_tpu = compose(T_tpu)
+final_dev = compose(T_dev)
 final_ref = compose(T_ref)
-adds = add_error(final_tpu, final_ref, model.vertices)
-rot = rotation_angle_deg(final_tpu, final_ref)
+adds = add_error(final_dev, final_ref, model.vertices)
+rot = rotation_angle_deg(final_dev, final_ref)
 fit_diff = np.abs(np.asarray(res.fitness) - fit_ref)
 print(f"[impl parity, N={N}] ADD mm: mean {adds.mean():.4f}  p95 {np.percentile(adds,95):.4f}  max {adds.max():.4f}")
 print(f"[impl parity] rot deg: max {rot.max():.4f}   |fitness diff|: max {fit_diff.max():.5f}")
 sub = model.vertices[:: max(1, len(model.vertices) // 2000)]
-adds_s = adds_error(final_tpu, final_ref, sub)
+adds_s = adds_error(final_dev, final_ref, sub)
 print(f"[impl parity] ADD-S mm (2k-vert subsample): mean {adds_s.mean():.4f}  max {adds_s.max():.4f}")
 
 # ---- level 2: full-pipeline parity ----
@@ -91,7 +93,7 @@ final_cpu_pipe = compose(T_cc)
 adds_pipe = add_error(refined, final_cpu_pipe, model.vertices)
 # exclude shared convergence failures (both sides in the same local minimum
 # still land within mm of each other; a case where they disagree >3 deg in
-# VERDICT means divergent basins - report both populations)
+# verdict means divergent basins - report both populations)
 agree = rotation_angle_deg(refined, final_cpu_pipe) < 3.0
 print(f"[pipeline parity] ADD mm: mean {adds_pipe.mean():.3f}  max {adds_pipe.max():.3f}  "
       f"(same-basin {agree.mean()*100:.0f}%: mean {adds_pipe[agree].mean():.3f}, max {adds_pipe[agree].max():.3f})")

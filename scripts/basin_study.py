@@ -13,10 +13,10 @@ import numpy as np
 
 from _workload import R_REN, scene_render, setup
 
-import pose_refine_tpu as prt
-from pose_refine_tpu import geometry
-from pose_refine_tpu.utils.metrics import rotation_angle_deg
-from pose_refine_tpu.utils.sync import sync
+import pose_refine as prt
+from pose_refine import geometry
+from pose_refine.utils.metrics import rotation_angle_deg
+from jax import block_until_ready as sync
 
 N = 256
 model, tris, K, proj, truth, _ = setup(N)

@@ -11,12 +11,12 @@ import numpy as np
 
 from _workload import scene_render, setup, time_median
 
-import pose_refine_tpu as prt
-from pose_refine_tpu import geometry
-from pose_refine_tpu.ops.depth_to_cloud import window_cloud_batched
-from pose_refine_tpu.ops.rasterize_pallas import rasterize_pallas
-from pose_refine_tpu.utils.metrics import add_error, rotation_angle_deg
-from pose_refine_tpu.utils.sync import sync
+import pose_refine as prt
+from pose_refine import geometry
+from pose_refine.ops.depth_to_cloud import window_cloud_batched
+from pose_refine.ops.rasterize_pallas import rasterize_pallas
+from pose_refine.utils.metrics import add_error, rotation_angle_deg
+from jax import block_until_ready as sync
 
 N = 256
 model, tris, K, proj, truth, poses = setup(N)

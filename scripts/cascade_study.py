@@ -12,13 +12,14 @@ Gates: the cascade must (a) keep the true-basin pose in the survivor set,
 (b) end with rs=2-grade ADD on the winner, (c) beat the flat rs=2 batch
 wall-clock.
 
-Run: python scripts/cascade_study.py   (TPU)
+Run: python scripts/cascade_study.py   (GPU)
 """
+import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo/scripts")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
@@ -26,9 +27,9 @@ import numpy as np
 
 from _workload import scene_render, setup, time_median
 
-import pose_refine_tpu as prt
-from pose_refine_tpu.utils.metrics import add_error, rotation_angle_deg
-from pose_refine_tpu.utils.sync import sync
+import pose_refine as prt
+from pose_refine.utils.metrics import add_error, rotation_angle_deg
+from jax import block_until_ready as sync
 
 N = 256
 model, tris, K, proj, truth, poses = setup(N)

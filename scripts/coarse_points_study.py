@@ -1,7 +1,7 @@
 """Coarse-to-fine ICP point schedule study.
 
 An ICP iteration's cost is gather-row-bound (~2.1 ms for 256x2048 rows,
-PERF_NOTES), so iterations on a 1-in-s strided subsample cost ~1/s of a
+the ICP profile), so iterations on a 1-in-s strided subsample cost ~1/s of a
 full one. coarse_iters=c runs the first c iterations on cloud[::s] (pure
 Gauss-Newton warm-up, no scoring) and the remaining max_iter-c + scoring
 pass on the full cloud - one fused program, no extra dispatch (unlike the
@@ -12,12 +12,13 @@ removes ~12 half-gathers ~= 12 x ~1.05 ms ~= 13 ms of the 141 ms wall
 (~+10%). Gates as always: fixed-seed per-case verdicts vs c=0, ADD,
 per-pose drift vs the c=0 twin.
 
-Run: python scripts/coarse_points_study.py   (TPU)
+Run: python scripts/coarse_points_study.py   (GPU)
 """
+import os
 import sys
 
-sys.path.insert(0, "/root/repo/scripts")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
@@ -25,9 +26,9 @@ import numpy as np
 
 from _workload import scene_render, setup, time_median
 
-import pose_refine_tpu as prt
-from pose_refine_tpu.icp import ICPConvergenceCriteria
-from pose_refine_tpu.utils.metrics import add_error, rotation_angle_deg
+import pose_refine as prt
+from pose_refine.icp import ICPConvergenceCriteria
+from pose_refine.utils.metrics import add_error, rotation_angle_deg
 
 N = 256
 model, tris, K, proj, truth, poses = setup(N)
@@ -68,7 +69,7 @@ for c, s in ((0, 2), (8, 2), (12, 2), (16, 2), (12, 4), (16, 4)):
 # NN pipeline (voxel-2mm scene). Run only when part 1 completed (same
 # process, warm cache for c=0 configs).
 
-from pose_refine_tpu.pipeline import fence
+from pose_refine.pipeline import fence
 
 print("\n-- streaming ceiling (batch 512, 4 in flight) --", flush=True)
 big = np.concatenate([poses, poses], axis=0)
@@ -111,7 +112,7 @@ for c, s in ((0, 2), (12, 2), (16, 4)):
 # (+-15 deg / +-30 mm: beyond the acceptance recipe, so some cases fail)
 # and check per-case verdict agreement c>0 vs c=0.
 
-from pose_refine_tpu.geometry import sample_hypotheses
+from pose_refine.geometry import sample_hypotheses
 
 print("\n-- NN borderline flip check (+-15 deg/+-30 mm, batch 256) --", flush=True)
 hard = sample_hypotheses(truth, N, rot_deg=15.0, trans_mm=30.0,

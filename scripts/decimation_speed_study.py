@@ -8,7 +8,7 @@ The SCENE stays full-resolution (it comes from the sensor); only the
 rendered hypothesis clouds move by ~cell_size/2, which must stay inside the
 ~0.6 mm depth-quantization floor to be free.
 
-Gates: recovery, per-case verdict agreement vs the full-mesh TPU run,
+Gates: recovery, per-case verdict agreement vs the full-mesh run,
 ADD-to-truth of recovered poses.
 """
 import jax
@@ -17,8 +17,8 @@ import numpy as np
 
 from _workload import scene_render, setup, time_median
 
-import pose_refine_tpu as prt
-from pose_refine_tpu.utils.metrics import add_error, rotation_angle_deg
+import pose_refine as prt
+from pose_refine.utils.metrics import add_error, rotation_angle_deg
 
 N = 256
 model, tris, K, proj, truth, poses = setup(N)

@@ -25,15 +25,18 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from pose_refine.platform import enable_compile_cache
+
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
-    import pose_refine_tpu as prt
-    from pose_refine_tpu import geometry, mesh
-    from pose_refine_tpu.utils.timer import Timer
-    from pose_refine_tpu.utils.sync import sync
+    import pose_refine as prt
+    from pose_refine import geometry, mesh
+    from pose_refine.utils.timer import Timer
+    from jax import block_until_ready as sync
 
-    print(f"backend: {jax.default_backend()}")
+    print(f"device: {jax.devices()[0].device_kind}")
     model = mesh.Model.load(args.model) if args.model else mesh.load_benchmark_model(verbose=True)
 
     K = geometry.LINEMOD_K.copy()
@@ -66,7 +69,7 @@ def main():
     print(f"init pixel diff xy: {abs(b1[0]-b2[0])}----{abs(b1[1]-b2[1])}\n")
 
     scene_kind = args.scene if args.scene != "nn" else (
-        "nn_bruteforce" if jax.default_backend() != "cpu" else "nn"
+        "nn"
     )
     refiner = prt.PoseRefiner(model, K=K, width=width, height=height, scene=scene_kind)
     timer.reset()

@@ -5,7 +5,7 @@ wrong-model hypotheses converge to visibly lower fitness, so the ranking
 identifies the observed object AND its pose in one pass - the reference
 would run its whole pipeline once per candidate model.
 
-Run: PYTHONPATH=/root/repo:$PYTHONPATH python scripts/demo_multi.py
+Run: PYTHONPATH=. python scripts/demo_multi.py
 """
 import time
 
@@ -14,10 +14,10 @@ import numpy as np
 
 from _workload import scene_render, setup
 
-import pose_refine_tpu as prt
-from pose_refine_tpu import mesh
-from pose_refine_tpu.utils.metrics import rotation_angle_deg
-from pose_refine_tpu.utils.sync import sync
+import pose_refine as prt
+from pose_refine import mesh
+from pose_refine.utils.metrics import rotation_angle_deg
+from jax import block_until_ready as sync
 
 model, tris, K, proj, truth, poses = setup(64)
 scene_depth = scene_render(tris, truth, proj)   # obj_06 is the observed object
@@ -37,7 +37,7 @@ fit = np.asarray(res.fitness)
 err = rotation_angle_deg(np.asarray(refined), truth)
 m0 = ids == 0
 best = prt.PoseRefiner.rank(res)[0]
-print(f"mixed batch 64 in {wall*1000:.0f} ms on {jax.default_backend()}")
+print(f"mixed batch 64 in {wall*1000:.0f} ms on {jax.devices()[0].device_kind}")
 print(f"  obj_06 hypotheses : recovered {(err[m0] < 3).mean()*100:.0f}%, "
       f"mean fitness {fit[m0].mean():.3f}")
 print(f"  sphere hypotheses : mean fitness {fit[~m0].mean():.3f} (wrong model)")

@@ -13,13 +13,16 @@ import numpy as np
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+    from pose_refine.platform import enable_compile_cache
+
+
+    enable_compile_cache()
     import jax.numpy as jnp
 
-    import pose_refine_tpu as prt
-    from pose_refine_tpu import geometry, mesh
-    from pose_refine_tpu.utils.sync import sync
-    from pose_refine_tpu.utils.timer import Timer
+    import pose_refine as prt
+    from pose_refine import geometry, mesh
+    from jax import block_until_ready as sync
+    from pose_refine.utils.timer import Timer
 
     W, H, N = 640, 480, 256
     model = mesh.load_benchmark_model(verbose=False)

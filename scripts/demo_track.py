@@ -7,9 +7,9 @@ re-inits its scene every frame too, SURVEY 3.3 - our warm rebuild is
 refined. Static shapes mean frame 2+ hits the compile cache - the loop
 runs at steady-state latency.
 
-Run: PYTHONPATH=/root/repo:$PYTHONPATH python scripts/demo_track.py [nn] [coarse] [fused]
+Run: PYTHONPATH=. python scripts/demo_track.py [nn] [coarse] [fused]
   'nn' tracks with the fused ON-DEVICE NN scene build
-  (SceneNN.from_depth_device + flash association) instead of projective.
+  (SceneNN.from_depth_device + brute-force association) instead of projective.
   'coarse' opts into the coarse-to-fine ICP point schedule (c=16, s=4) -
   the LOW-RISK place for it: the tracking prior is within a few degrees,
   so the borderline-basin flips the headline study gates on cannot arise.
@@ -30,10 +30,10 @@ import numpy as np
 
 from _workload import scene_render, setup
 
-import pose_refine_tpu as prt
-from pose_refine_tpu import geometry
-from pose_refine_tpu.utils.metrics import rotation_angle_deg
-from pose_refine_tpu.utils.sync import sync
+import pose_refine as prt
+from pose_refine import geometry
+from pose_refine.utils.metrics import rotation_angle_deg
+from jax import block_until_ready as sync
 
 N_HYP = 16      # tracking needs few hypotheses - the prior is good
 N_FRAMES = 30
@@ -76,8 +76,7 @@ for frame in range(N_FRAMES):
     # "sensor" frame -> ONE fused program: scene build + refinement
     frame_depth = scene_render(tris, truth, proj)
     t0 = time.perf_counter()
-    # pure host numpy bookkeeping - the eager-jnp version of this cost ~2
-    # device dispatches (~28 ms EACH on tunneled runtimes) inside the loop
+    # pure host numpy bookkeeping - no eager device ops inside the loop
     if FUSED:
         # one fused device program per frame; readbacks fence the step
         estimate = session.step(frame_depth).pose
@@ -96,7 +95,7 @@ for frame in range(N_FRAMES):
     errs.append(err)
 
 lat = np.array(lat)
-print(f"tracked {N_FRAMES} frames on {jax.default_backend()}: "
+print(f"tracked {N_FRAMES} frames on {jax.devices()[0].device_kind}: "
       f"steady-state {np.median(lat)*1000:.0f} ms/frame "
       f"({1/np.median(lat):.1f} fps incl. per-frame scene rebuild), "
       f"rot err mean {np.mean(errs):.3f} max {np.max(errs):.3f} deg")

@@ -2,13 +2,15 @@
 reference algorithm (C++ baseline)? If yes, the 'recovered<3deg' ceiling is
 the ICP convergence basin, not an implementation defect."""
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from pose_refine.platform import enable_compile_cache
+
+enable_compile_cache()
 import jax.numpy as jnp, numpy as np
-import pose_refine_tpu as prt
-from pose_refine_tpu import geometry, mesh, native
-from pose_refine_tpu.ops.rasterize_pallas import rasterize_pallas
-from pose_refine_tpu.ops.depth_to_cloud import depth_to_cloud
-from pose_refine_tpu.utils.sync import sync
+import pose_refine as prt
+from pose_refine import geometry, mesh, native
+from pose_refine.ops.rasterize_pallas import rasterize_pallas
+from pose_refine.ops.depth_to_cloud import depth_to_cloud
+from jax import block_until_ready as sync
 
 W, H, N = 640, 480, 64
 model = mesh.load_benchmark_model()
@@ -31,7 +33,7 @@ def rot_err_deg(T):
     Rr = T[:3, :3] @ truth[:3, :3].T
     return np.degrees(np.arccos(np.clip((np.trace(Rr) - 1) / 2, -1, 1)))
 
-tpu_err = np.array([rot_err_deg(refined[i]) for i in range(N)])
+dev_err = np.array([rot_err_deg(refined[i]) for i in range(N)])
 
 # CPU baseline on the same 64 hypotheses
 dep_cc = native.cpu_render_baseline(np.asarray(tris), poses, np.asarray(proj), W, H)
@@ -47,12 +49,12 @@ cpu_refined[:, :3, 3] *= 1000.0
 cpu_final = np.einsum("nij,njk->nik", cpu_refined, poses)
 cpu_err = np.array([rot_err_deg(cpu_final[i]) for i in range(N)])
 
-tpu_ok = tpu_err < 3.0
+dev_ok = dev_err < 3.0
 cpu_ok = cpu_err < 3.0
-print(f"TPU recovered: {tpu_ok.mean()*100:.0f}%   CPU-reference recovered: {cpu_ok.mean()*100:.0f}%")
-print(f"agreement (same verdict): {(tpu_ok == cpu_ok).mean()*100:.0f}%")
-bad = np.nonzero(~tpu_ok)[0]
-print("TPU-failed cases:", bad.tolist())
+print(f"device recovered: {dev_ok.mean()*100:.0f}%   CPU-reference recovered: {cpu_ok.mean()*100:.0f}%")
+print(f"agreement (same verdict): {(dev_ok == cpu_ok).mean()*100:.0f}%")
+bad = np.nonzero(~dev_ok)[0]
+print("device-failed cases:", bad.tolist())
 print("  their CPU errors (deg):", np.round(cpu_err[bad], 2).tolist())
 print("  their init rotation magnitudes (deg):",
       np.round([rot_err_deg(poses[i]) for i in bad], 1).tolist())

@@ -1,9 +1,8 @@
 """Full-res (render_scale=1) lift geometry: stride/top_k trade-off study.
 
-The w256/s2 window emits 16384 candidates, putting top_k on its ~120 ms
-key-count floor; stride 3 emits 7396 at the same crop coverage. Measured
-(TPU v5e, bench workload): s2/mp4096 521/s, s3/mp4096 580/s at 100%
-verdict agreement and identical ADD, s3/mp2048 690/s at 99%.
+The w256/s2 window emits 16384 top_k candidates; stride 3 emits 7396 at
+the same crop coverage. Arms: s2/mp4096, s3/mp4096 and s3/mp2048 on the
+bench workload, gated on verdict agreement and ADD.
 """
 import jax
 import jax.numpy as jnp
@@ -11,8 +10,8 @@ import numpy as np
 
 from _workload import scene_render, setup, time_median
 
-import pose_refine_tpu as prt
-from pose_refine_tpu.utils.metrics import add_error, rotation_angle_deg
+import pose_refine as prt
+from pose_refine.utils.metrics import add_error, rotation_angle_deg
 
 N = 256
 model, tris, K, proj, truth, poses = setup(N)

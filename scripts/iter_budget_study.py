@@ -7,12 +7,13 @@ time). The reference default is 30 (icp.h:42-45); most hypotheses converge
 earlier. Sweep max_iteration with the usual gates: per-case verdict
 agreement vs the 30-iter run, ADD(recovered), recovery.
 
-Run: python scripts/iter_budget_study.py   (TPU)
+Run: python scripts/iter_budget_study.py   (GPU)
 """
+import os
 import sys
 
-sys.path.insert(0, "/root/repo/scripts")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
@@ -20,9 +21,9 @@ import numpy as np
 
 from _workload import scene_render, setup, time_median
 
-import pose_refine_tpu as prt
-from pose_refine_tpu.icp import ICPConvergenceCriteria
-from pose_refine_tpu.utils.metrics import add_error, rotation_angle_deg
+import pose_refine as prt
+from pose_refine.icp import ICPConvergenceCriteria
+from pose_refine.utils.metrics import add_error, rotation_angle_deg
 
 N = 256
 model, tris, K, proj, truth, poses = setup(N)

@@ -8,7 +8,7 @@ scene/nn.py) prunes strictly more while staying exact; this script measures
 by how much on a realistic scene.
 
 Run on CPU (the traversal is the production NN path there):
-  PYTHONPATH=/root/repo:$PYTHONPATH JAX_PLATFORMS=cpu python scripts/kd_pruning_study.py
+  PYTHONPATH=. JAX_PLATFORMS=cpu python scripts/kd_pruning_study.py
 """
 
 import time
@@ -20,9 +20,9 @@ jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
 
-from pose_refine_tpu import geometry, mesh  # noqa: E402
-from pose_refine_tpu.ops import rasterize as rz  # noqa: E402
-from pose_refine_tpu.scene.nn import SceneNN, _nn_kdtree  # noqa: E402
+from pose_refine import geometry, mesh  # noqa: E402
+from pose_refine.ops import rasterize as rz  # noqa: E402
+from pose_refine.scene.nn import SceneNN, _nn_kdtree  # noqa: E402
 
 
 def main():

@@ -1,4 +1,4 @@
-"""NN scene-cascade study (VERDICT r3 #8 close-out): does
+"""NN scene-cascade study : does
 scene_cascade=(coarse_voxel_mm, coarse_iters) + a short full-resolution pass
 match the accuracy of a full-length raw-scene refine at ~2x the throughput?
 
@@ -12,7 +12,7 @@ Arms (bench workload: 256 jittered hypotheses, 26k-pt raw scene cloud):
 Reports poses/s, recovery (<3 deg), per-case verdict agreement vs raw-24, and
 max ADD-style translation/rotation deltas of the refined poses vs raw-24.
 
-Run: PYTHONPATH=/root/repo:$PYTHONPATH python scripts/nn_cascade_study.py [smoke]
+Run: PYTHONPATH=. python scripts/nn_cascade_study.py [smoke]
 """
 import sys
 import time
@@ -24,17 +24,18 @@ if SMOKE:
     import jax
     jax.config.update("jax_platforms", "cpu")
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from pose_refine.platform import enable_compile_cache
+
+enable_compile_cache()
 import jax.numpy as jnp
 
-import pose_refine_tpu as prt
-from pose_refine_tpu import geometry, mesh
-from pose_refine_tpu.utils.metrics import rotation_angle_deg
-from pose_refine_tpu.utils.sync import sync
+import pose_refine as prt
+from pose_refine import geometry, mesh
+from pose_refine.utils.metrics import rotation_angle_deg
+from jax import block_until_ready as sync
 
 W, H = (320, 240) if SMOKE else (640, 480)
 N_POSES = 8 if SMOKE else 256
-INTERP = jax.default_backend() == "cpu"
 
 
 def main():
@@ -51,12 +52,10 @@ def main():
     d_rot = np.asarray(geometry.euler_to_rotation(
         rng.uniform(-0.17, 0.17, (N_POSES, 3)).astype(np.float32)))
     poses = np.asarray(geometry.pose_from_Rt(
-        jnp.einsum("nij,jk->nik", d_rot, truth[:3, :3]),
+        np.einsum("nij,jk->nik", d_rot, truth[:3, :3]),
         truth[:3, 3] + rng.uniform(-20, 20, (N_POSES, 3)).astype(np.float32)))
 
-    use_pallas = not INTERP
-    r = prt.PoseRenderer(model, K=K, width=W, height=H,
-                         backend="pallas" if use_pallas else "dense")
+    r = prt.PoseRenderer(model, K=K, width=W, height=H)
     scene_depth = np.asarray(r.render_depth(truth[None]))[0].astype(np.int32)
 
     CFG = dict(render_scale=2, max_points=2048, window=128, stride=2,
@@ -67,7 +66,7 @@ def main():
     def arm(tag, voxel, cascade, fine_iters):
         print(f"[{tag}] building + compiling...", flush=True)
         ref = prt.PoseRefiner(model, K=K, width=W, height=H,
-                              use_pallas=use_pallas, scene="nn_bruteforce",
+                              scene="nn_bruteforce",
                               scene_voxel_mm=voxel, scene_cascade=cascade,
                               **CFG)
         ref.set_scene_depth(scene_depth)

@@ -1,7 +1,6 @@
 """NN-scene voxel downsampling: accuracy vs throughput on the bench workload.
 
-Exact NN is O(queries x scene points) (PERF_NOTES: the flash kernel runs at
-VPU issue rate - the cost IS the physics), so shrinking the scene cloud is
+Exact NN is O(queries x scene points), so shrinking the scene cloud is
 the honest lever for the NN pipeline. Voxel downsampling (centroid +
 renormalized mean normal) is the standard practice the reference leaves to
 its users. Gates: recovery, ADD-to-truth of recovered poses, and agreement
@@ -13,8 +12,8 @@ import numpy as np
 
 from _workload import scene_render, setup, time_median
 
-import pose_refine_tpu as prt
-from pose_refine_tpu.utils.metrics import add_error, rotation_angle_deg
+import pose_refine as prt
+from pose_refine.utils.metrics import add_error, rotation_angle_deg
 
 N = 256
 model, tris, K, proj, truth, poses = setup(N)

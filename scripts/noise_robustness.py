@@ -20,8 +20,8 @@ import numpy as np
 
 from _workload import scene_render, setup, time_median
 
-import pose_refine_tpu as prt
-from pose_refine_tpu.utils.metrics import add_error, rotation_angle_deg
+import pose_refine as prt
+from pose_refine.utils.metrics import add_error, rotation_angle_deg
 
 N = 256
 model, tris, K, proj, truth, poses = setup(N)

@@ -32,16 +32,18 @@ except ImportError:
     sys.exit(0)
 
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from pose_refine.platform import enable_compile_cache
+
+enable_compile_cache()
 import numpy as np
 import jax.numpy as jnp
 
-from pose_refine_tpu import geometry, mesh
-from pose_refine_tpu import icp as icp_mod
-import pose_refine_tpu.ops.rasterize as R
-from pose_refine_tpu.ops.depth_to_cloud import depth_to_cloud
-from pose_refine_tpu.scene.nn import SceneNN
-from pose_refine_tpu.utils.metrics import rotation_angle_deg
+from pose_refine import geometry, mesh
+from pose_refine import icp as icp_mod
+import pose_refine.ops.rasterize as R
+from pose_refine.ops.depth_to_cloud import depth_to_cloud
+from pose_refine.scene.nn import SceneNN
+from pose_refine.utils.metrics import rotation_angle_deg
 
 
 def run(smoke: bool = False):

@@ -8,13 +8,15 @@ baseline AT THE SAME budget, on the failure-parity workload?
 """
 import time
 import jax
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
+from pose_refine.platform import enable_compile_cache
+
+enable_compile_cache()
 import jax.numpy as jnp, numpy as np
-import pose_refine_tpu as prt
-from pose_refine_tpu import geometry, mesh
-from pose_refine_tpu.ops.rasterize_pallas import rasterize_pallas
-from pose_refine_tpu.utils.metrics import add_error, rotation_angle_deg
-from pose_refine_tpu.utils.sync import sync
+import pose_refine as prt
+from pose_refine import geometry, mesh
+from pose_refine.ops.rasterize_pallas import rasterize_pallas
+from pose_refine.utils.metrics import add_error, rotation_angle_deg
+from jax import block_until_ready as sync
 
 W, H, N = 640, 480, 64
 model = mesh.load_benchmark_model()

@@ -3,7 +3,7 @@
 The production config renders hypotheses at 1/2 resolution (320x240); this
 asks whether 1/3 (213x160, floor-divided - the divisibility constraint was
 relaxed for this study) buys throughput without losing accuracy. The honest
-quantization floor at rs=2 is ~0.6 mm ADD (PERF_NOTES); rs=3 coarsens the
+quantization floor at rs=2 is ~0.6 mm ADD; rs=3 coarsens the
 hypothesis clouds ~1.5x further, so the prior is rejection - the adoption
 bar is STRICT DOMINANCE like the 4 mm decimation call: every verdict flip
 vs rs=2 must be a recovery AND ADD must not degrade.
@@ -11,12 +11,13 @@ vs rs=2 must be a recovery AND ADD must not degrade.
 Gates: recovery, per-case verdict agreement vs the rs=2 production run,
 ADD-to-truth of recovered poses, throughput.
 
-Run: python scripts/render_scale3_study.py   (TPU)
+Run: python scripts/render_scale3_study.py   (GPU)
 """
+import os
 import sys
 
-sys.path.insert(0, "/root/repo/scripts")
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp
@@ -24,8 +25,8 @@ import numpy as np
 
 from _workload import scene_render, setup, time_median
 
-import pose_refine_tpu as prt
-from pose_refine_tpu.utils.metrics import add_error, rotation_angle_deg
+import pose_refine as prt
+from pose_refine.utils.metrics import add_error, rotation_angle_deg
 
 N = 256
 model, tris, K, proj, truth, poses = setup(N)

@@ -1,13 +1,13 @@
 """scene_pool study: does on-device centroid pooling match host voxel
-downsampling on CLUTTERED scenes (VERDICT r3 #5)?
+downsampling on CLUTTERED scenes?
 
-The round-3 bench tie between scene_stride and scene_voxel_mm was measured
-on object-only scenes (nothing to prune, CLAUDE.md); this study adds real
+A comparison of scene_stride and scene_voxel_mm on object-only scenes has
+nothing to prune; this study adds real
 background clutter - a wall plane behind the object and a second object
 beside it - where depth edges are exactly where plain pooling would
 fabricate ghost points and where downsampling quality actually matters.
 
-Arms (all NN bruteforce/flash association):
+Arms (all NN brute-force association):
   full        - device-built scene at full grid resolution
   stride2/3   - grid subsampling (drops points, no denoising)
   pool(auto)  - on-device depth-aware centroid pooling, auto-derived from
@@ -15,8 +15,8 @@ Arms (all NN bruteforce/flash association):
   host voxel  - set_scene_depth + refine with scene_voxel_mm (the reference
                 -style host build; the accuracy yardstick)
 
-Run: PYTHONPATH=/root/repo:$PYTHONPATH python scripts/scene_pool_study.py [smoke]
-(CPU ok for accuracy; on TPU also reports per-batch wall.)
+Run: PYTHONPATH=. python scripts/scene_pool_study.py [smoke]
+(CPU ok for accuracy; on the GPU also reports per-batch wall.)
 """
 import sys
 import time
@@ -29,17 +29,17 @@ if "cpu" in sys.argv[1:] or SMOKE:
 
     jax.config.update("jax_platforms", "cpu")
 import jax
-
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
 import jax.numpy as jnp
+from jax import block_until_ready as sync
 
-import pose_refine_tpu as prt
-from pose_refine_tpu import geometry, mesh
-from pose_refine_tpu.utils.metrics import rotation_angle_deg
-from pose_refine_tpu.utils.sync import sync
+import pose_refine as prt
+from pose_refine import geometry, mesh, platform
+from pose_refine.utils.metrics import rotation_angle_deg
 
-# CPU exact-NN is O(Q x S) single-core: keep the off-TPU config small
-_CPU = SMOKE or "cpu" in sys.argv[1:] or jax.default_backend() == "cpu"
+platform.enable_compile_cache()
+
+# CPU exact-NN is O(Q x S) single-core: keep the CPU config small
+_CPU = SMOKE or "cpu" in sys.argv[1:] or not platform.is_accelerator()
 W, H = (160, 120) if _CPU else (320, 240)
 N_POSES = 4 if SMOKE else (8 if _CPU else 32)
 
@@ -86,7 +86,7 @@ def main():
     hyps = np.stack(hyps)
 
     common = dict(K=K, width=W, height=H, max_points=4096, window=96,
-                  stride=1, use_pallas=jax.default_backend() != "cpu",
+                  stride=1,
                   scene="nn_bruteforce")
 
     def run_track(tag, **kw):

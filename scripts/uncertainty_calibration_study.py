@@ -1,6 +1,6 @@
 """Calibration study for the fused PoseUncertainty measurement covariance.
 
-Round-3 postmortem (VERDICT round 3, weak #1): the Laplace covariance
+The Laplace covariance
 sigma2 * inv(J^T J) computed from the final fit residuals claimed
 trace(R) ~ 1e-4 while the actual per-frame measurement error of the whole
 pipeline (render quantization + weakly-constrained rotation DOFs) was
@@ -24,7 +24,7 @@ icosphere (rotation DOFs nearly unobservable - the divergence trigger),
 each at two hypothesis-jitter levels.
 
 Run (CPU is fine - dense 160x120 renders):
-    PYTHONPATH=/root/repo:$PYTHONPATH python scripts/uncertainty_calibration_study.py
+    PYTHONPATH=. python scripts/uncertainty_calibration_study.py
 """
 import sys
 
@@ -34,9 +34,9 @@ jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
-import pose_refine_tpu as prt
-from pose_refine_tpu import geometry, mesh
-from pose_refine_tpu.utils import fusion
+import pose_refine as prt
+from pose_refine import geometry, mesh
+from pose_refine.utils import fusion
 
 W, H = 160, 120
 N_FRAMES = int(sys.argv[1]) if len(sys.argv) > 1 else 20

@@ -1,10 +1,9 @@
 import numpy as np
 import pytest
 
-import pose_refine_tpu as prt
-from pose_refine_tpu import geometry, mesh
-import pose_refine_tpu.ops.rasterize as R
-from pose_refine_tpu.ops.rasterize_pallas import rasterize_pallas
+import pose_refine as prt
+from pose_refine import geometry, mesh
+import pose_refine.ops.rasterize as R
 
 W, H = 160, 120
 
@@ -16,14 +15,17 @@ def small_K():
 
 
 def test_models_package_alias():
-    from pose_refine_tpu import models
+    from pose_refine import models
 
     m = models.make_icosphere(radius=5.0, subdivisions=1)
     assert isinstance(m, models.Model)
 
 
 def test_pallas_roi_non_tile_multiple():
-    # ROI dims not multiples of (8, 128): partial edge blocks must be masked
+    # ROI dims that are no power of two, at an odd origin: every pixel
+    # index the kernel writes must land inside the crop
+    from pose_refine.ops.rasterize_pallas import rasterize_pallas
+
     m = mesh.make_bumpy_sphere(radius=40.0, subdivisions=3)
     tris = m.tris[mesh.morton_order(m.tris)]
     proj = geometry.compute_proj(small_K(), W, H)
@@ -38,7 +40,8 @@ def test_pallas_roi_non_tile_multiple():
 
 
 def test_render_dispatcher_cpu_fallback():
-    # on CPU the pallas path raises and the dispatcher must fall back
+    # on CPU the platform's choice is the XLA scatter path (the kernel runs
+    # there only in the interpreter, by explicit request)
     m = mesh.make_icosphere(radius=30.0, subdivisions=1)
     proj = geometry.compute_proj(small_K(), W, H)
     pose = np.asarray(

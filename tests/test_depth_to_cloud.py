@@ -1,7 +1,7 @@
 import numpy as np
 
-from pose_refine_tpu import geometry
-from pose_refine_tpu.ops import depth_to_cloud as d2c
+from pose_refine import geometry
+from pose_refine.ops import depth_to_cloud as d2c
 
 
 def make_depth(rng, h=60, w=80):
@@ -58,7 +58,7 @@ def test_stride(rng):
 
 
 def test_window_cloud(rng):
-    from pose_refine_tpu.ops.depth_to_cloud import window_cloud
+    from pose_refine.ops.depth_to_cloud import window_cloud
 
     K = geometry.LINEMOD_K
     depth = np.zeros((120, 160), np.int32)
@@ -82,7 +82,7 @@ def test_window_cloud(rng):
 
 
 def test_window_cloud_empty_depth():
-    from pose_refine_tpu.ops.depth_to_cloud import window_cloud
+    from pose_refine.ops.depth_to_cloud import window_cloud
 
     K = geometry.LINEMOD_K
     depth = np.zeros((120, 160), np.int32)
@@ -91,7 +91,7 @@ def test_window_cloud_empty_depth():
 
 
 def test_compact_topk_keeps_all_when_fits(rng):
-    from pose_refine_tpu.ops.depth_to_cloud import compact_topk
+    from pose_refine.ops.depth_to_cloud import compact_topk
 
     pts = rng.normal(size=(1000, 3)).astype(np.float32)
     valid = rng.random(1000) > 0.5
@@ -103,7 +103,7 @@ def test_compact_topk_keeps_all_when_fits(rng):
 
 
 def test_compact_topk_overflow_is_spatially_spread(rng):
-    from pose_refine_tpu.ops.depth_to_cloud import compact_topk
+    from pose_refine.ops.depth_to_cloud import compact_topk
 
     # valid points fill the whole array; keep half
     p = 4096
@@ -124,7 +124,7 @@ def test_window_cloud_batched_matches_vmap():
     """The batched-gather window lift must equal vmap(window_cloud)."""
     import jax
 
-    from pose_refine_tpu.ops.depth_to_cloud import window_cloud, window_cloud_batched
+    from pose_refine.ops.depth_to_cloud import window_cloud, window_cloud_batched
 
     rng = np.random.default_rng(5)
     K = geometry.LINEMOD_K.copy()
@@ -150,10 +150,10 @@ def test_compact_topk_morton_order_same_set_tighter_tiles(rng):
     """order_shape emits the kept rows in Morton order of their window
     slot: identical kept SET (pure permutation), valid rows first, and
     consecutive-row locality strictly better than the hash order (the
-    property the flash-NN tile bound depends on)."""
+    property the NN pipeline asks for)."""
     import jax.numpy as jnp
 
-    from pose_refine_tpu.ops.depth_to_cloud import compact_topk
+    from pose_refine.ops.depth_to_cloud import compact_topk
 
     sh, sw = 32, 32
     pts = rng.uniform(-0.1, 0.1, (sh * sw, 3)).astype(np.float32)
@@ -195,13 +195,13 @@ def test_compact_topk_morton_order_same_set_tighter_tiles(rng):
 def test_morton_key_matches_permutation_table_order():
     """morton_key (in-program bit spreading - nothing baked into the trace)
     must sort row-major slots exactly as scene.nn._grid_morton_perm's rank
-    table does: compact_topk's ordering switched from the table to these
-    keys to stop re-shipping a (p,) closure constant per call (CLAUDE.md)."""
+    table does: compact_topk orders by these keys instead of baking a (p,)
+    table into the trace."""
     import jax.numpy as jnp
     import pytest
 
-    from pose_refine_tpu.ops.depth_to_cloud import morton_key
-    from pose_refine_tpu.scene.nn import _grid_morton_perm
+    from pose_refine.ops.depth_to_cloud import morton_key
+    from pose_refine.scene.nn import _grid_morton_perm
 
     for sh, sw in [(4, 4), (7, 5), (48, 64), (1, 3), (33, 1)]:
         p = sh * sw

@@ -9,10 +9,10 @@ reproduce.
 import numpy as np
 import pytest
 
-from pose_refine_tpu import geometry
-from pose_refine_tpu import icp as icp_mod
-from pose_refine_tpu.utils import fusion
-from pose_refine_tpu.utils.fusion import PoseTracker, se3_exp, se3_log
+from pose_refine import geometry
+from pose_refine import icp as icp_mod
+from pose_refine.utils import fusion
+from pose_refine.utils.fusion import PoseTracker, se3_exp, se3_log
 
 
 def test_se3_exp_log_roundtrip(rng):
@@ -76,7 +76,7 @@ def test_se3_exp_log_match_scipy_matrix_functions(rng):
 def test_se3_adjoint_matches_conjugation(rng):
     """Defining property pinning the [omega, v] twist ordering:
     T exp(xi) T^-1 == exp(Ad_T xi) for arbitrary T and xi."""
-    from pose_refine_tpu.utils.fusion import se3_adjoint
+    from pose_refine.utils.fusion import se3_adjoint
 
     for _ in range(10):
         T = se3_exp(rng.uniform(-1.0, 1.0, 6))
@@ -254,7 +254,7 @@ def test_gate_rejects_180_deg_flip_instead_of_crashing(rng):
 def test_predict_motion_transports_covariance_through_adjoint(rng):
     """An external motion increment must conjugate P by its adjoint: a
     90-deg camera yaw swaps which translation axis carries the variance."""
-    from pose_refine_tpu.utils.fusion import se3_adjoint
+    from pose_refine.utils.fusion import se3_adjoint
 
     truth = _random_pose_mm(rng)
     # tight in t_x, loose in t_y
@@ -382,8 +382,8 @@ def test_tracker_refiner_integration_loop(rng):
     derailing the track."""
     import jax.numpy as jnp
 
-    import pose_refine_tpu as prt
-    from pose_refine_tpu import mesh
+    import pose_refine as prt
+    from pose_refine import mesh
 
     W, H = 160, 120
     K = geometry.LINEMOD_K.copy()

@@ -6,8 +6,8 @@ with breadth (the reference is only ever exercised at 640x480)."""
 import numpy as np
 import pytest
 
-import pose_refine_tpu as prt
-from pose_refine_tpu import geometry, mesh
+import pose_refine as prt
+from pose_refine import geometry, mesh
 
 
 def _case(seed):
@@ -60,7 +60,7 @@ def test_random_config_recovers(seed):
     assert np.isfinite(np.asarray(res.fitness)).all()
     assert np.isfinite(np.asarray(res.inlier_rmse)).all()
 
-    from pose_refine_tpu.utils.metrics import rotation_angle_deg
+    from pose_refine.utils.metrics import rotation_angle_deg
 
     rot = rotation_angle_deg(refined, truth)
     t_err = np.abs(refined[:, :3, 3] - truth[:3, 3]).max(axis=(1,))

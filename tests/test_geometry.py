@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from pose_refine_tpu import geometry
+from pose_refine import geometry
 
 
 def test_euler_roundtrip(rng):
@@ -87,7 +87,7 @@ def test_transform_points_batched(rng):
 
 
 def test_sample_hypotheses():
-    from pose_refine_tpu.geometry import (
+    from pose_refine.geometry import (
         pose_from_Rt, rotation_to_euler, sample_hypotheses,
     )
 

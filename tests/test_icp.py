@@ -2,13 +2,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pose_refine_tpu import geometry, mesh
-from pose_refine_tpu import icp as icp_mod
-from pose_refine_tpu.ops import rasterize as _  # noqa: F401
-import pose_refine_tpu.ops.rasterize as R
-from pose_refine_tpu.ops.depth_to_cloud import depth_to_cloud
-from pose_refine_tpu.scene.projective import SceneProjective
-from pose_refine_tpu.utils import oracle
+from pose_refine import geometry, mesh
+from pose_refine import icp as icp_mod
+from pose_refine.ops import rasterize as _  # noqa: F401
+import pose_refine.ops.rasterize as R
+from pose_refine.ops.depth_to_cloud import depth_to_cloud
+from pose_refine.scene.projective import SceneProjective
+from pose_refine.utils import oracle
 
 W, H = 160, 120
 
@@ -183,7 +183,7 @@ def test_icp_empty_scene_returns_identity():
 def test_golden_recovery_nn_scene():
     """Same golden recovery through the kd-tree NN scene - the reference
     demo's default association (test.cpp:83-86, USE_PROJ disabled)."""
-    from pose_refine_tpu.scene.nn import SceneNN
+    from pose_refine.scene.nn import SceneNN
 
     m = mesh.make_bumpy_sphere(radius=50.0, subdivisions=4)
     wide, high = 320, 240
@@ -205,10 +205,10 @@ def test_golden_recovery_nn_scene():
 
 
 def test_packed_reduction_matches_matmul():
-    """The reference's tight 29-float reduction (icp.h:125-209) vs the MXU
+    """The reference's tight 29-float reduction (icp.h:125-209) vs the matmul
     normal-equation formulation: same AtA/Atb/count/mse."""
     import jax.numpy as jnp
-    from pose_refine_tpu.icp import _normal_equations, _normal_equations_packed
+    from pose_refine.icp import _normal_equations, _normal_equations_packed
 
     rng = np.random.default_rng(11)
     cloud = jnp.asarray(rng.normal(size=(777, 3)).astype(np.float32) * 0.1)
@@ -294,7 +294,7 @@ def test_solver_f32_refinement_matches_f64_when_ill_conditioned():
     """The reference solves in f64 LDLT (icp.cpp:29-45); ours is f32 Cholesky
     + one refinement step. Verify on ill-conditioned systems (near-planar
     scene: rotation about the plane normal is weakly observable)."""
-    from pose_refine_tpu.icp import _solve_damped
+    from pose_refine.icp import _solve_damped
 
     rng = np.random.default_rng(4)
     # build AtA from rows of a nearly-planar point set: poorly conditioned
@@ -319,7 +319,7 @@ def test_robust_delta_zero_is_exact_reference_path():
     plain least-squares path."""
     import jax.numpy as jnp
 
-    from pose_refine_tpu.icp import _normal_equations
+    from pose_refine.icp import _normal_equations
 
     rng = np.random.default_rng(21)
     cloud = jnp.asarray(rng.normal(0, 0.1, (256, 3)).astype(np.float32))
@@ -339,8 +339,8 @@ def test_robust_delta_downweights_outliers():
     recover the true transform markedly better than plain least squares."""
     import jax.numpy as jnp
 
-    from pose_refine_tpu import geometry
-    from pose_refine_tpu.icp import ICPConvergenceCriteria, icp_point_to_plane
+    from pose_refine import geometry
+    from pose_refine.icp import ICPConvergenceCriteria, icp_point_to_plane
 
     rng = np.random.default_rng(7)
     # scene: a bumpy height-field surface z = f(x, y) (full 6-dof constraint)
@@ -392,7 +392,7 @@ def test_coarse_schedule_recovers_and_validates():
     combinations raise."""
     import pytest
 
-    import pose_refine_tpu as prt
+    import pose_refine as prt
 
     W, H = 160, 120
     K = geometry.LINEMOD_K.copy()

@@ -23,7 +23,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from pose_refine_tpu import geometry, icp
+from pose_refine import geometry, icp
 
 
 def corner_scene_query(src):

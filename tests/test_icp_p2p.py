@@ -11,11 +11,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import pose_refine_tpu as prt
-from pose_refine_tpu import geometry, mesh
-from pose_refine_tpu import icp as icp_mod
-import pose_refine_tpu.ops.rasterize as R
-from pose_refine_tpu.ops.depth_to_cloud import depth_to_cloud
+import pose_refine as prt
+from pose_refine import geometry, mesh
+from pose_refine import icp as icp_mod
+import pose_refine.ops.rasterize as R
+from pose_refine.ops.depth_to_cloud import depth_to_cloud
 from tests.test_icp import reference_demo_poses
 
 W, H = 160, 120
@@ -147,7 +147,7 @@ def test_p2p_golden_recovery_nn_obj06():
         R.rasterize_dense(m.tris, np.stack([pose1, pose2]), wide, high, proj)
     )
     cloud, valid, _n = depth_to_cloud(depth[0], K, max_points=16384)
-    from pose_refine_tpu.scene.nn import SceneNN
+    from pose_refine.scene.nn import SceneNN
 
     scene = SceneNN.from_depth(depth[1], K)
     result, _cloud = icp_mod.icp_point_to_point(
@@ -269,7 +269,7 @@ def test_estimation_validation_and_projective_warning(caplog):
     with pytest.raises(ValueError, match="estimation"):
         prt.PoseRefiner(m, K=K, width=W, height=H, estimation="icp")
 
-    with caplog.at_level(logging.WARNING, logger="pose_refine_tpu"):
+    with caplog.at_level(logging.WARNING, logger="pose_refine"):
         prt.PoseRefiner(
             m, K=K, width=W, height=H, estimation="point_to_point"
         )  # default scene is projective
@@ -277,7 +277,7 @@ def test_estimation_validation_and_projective_warning(caplog):
 
     # NN scenes do not warn
     caplog.clear()
-    with caplog.at_level(logging.WARNING, logger="pose_refine_tpu"):
+    with caplog.at_level(logging.WARNING, logger="pose_refine"):
         prt.PoseRefiner(
             m, K=K, width=W, height=H, scene="nn_bruteforce",
             estimation="point_to_point",

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from pose_refine_tpu import mesh
+from pose_refine import mesh
 
 
 def test_icosphere_geometry():
@@ -66,8 +66,8 @@ def test_simplify_vertex_clustering():
 def test_simplified_mesh_still_refines():
     """End-to-end: a 2mm-clustered mesh recovers the golden perturbation."""
     from tests.test_icp import reference_demo_poses
-    import pose_refine_tpu as prt
-    from pose_refine_tpu import geometry
+    import pose_refine as prt
+    from pose_refine import geometry
 
     m = mesh.make_bumpy_sphere(radius=50.0, subdivisions=4)
     s = mesh.simplify_vertex_clustering(m, cell_size=2.0)
@@ -481,7 +481,7 @@ def test_gltf_external_bin_and_error_paths(tmp_path):
         mesh.Model.load(p, verbose=False)
 
     # a tightly-packed accessor whose count overruns its bufferView must
-    # error, not silently read bytes from the NEXT bufferView (ADVICE r4)
+    # error, not silently read bytes from the NEXT bufferView
     with open(tmp_path / "tri.bin", "wb") as f:
         f.write(bin_data)
     overrun = json.loads(json.dumps(gltf))

@@ -5,11 +5,11 @@ inputs must agree to the BASELINE north-star budget (1e-3 m = 1 mm)."""
 import numpy as np
 import pytest
 
-import pose_refine_tpu.ops.rasterize as R
-from pose_refine_tpu import geometry, icp as icp_mod, mesh, native
-from pose_refine_tpu.ops.depth_to_cloud import depth_to_cloud
-from pose_refine_tpu.scene.projective import SceneProjective
-from pose_refine_tpu.utils.metrics import add_error, adds_error, rotation_angle_deg
+import pose_refine.ops.rasterize as R
+from pose_refine import geometry, icp as icp_mod, mesh, native
+from pose_refine.ops.depth_to_cloud import depth_to_cloud
+from pose_refine.scene.projective import SceneProjective
+from pose_refine.utils.metrics import add_error, adds_error, rotation_angle_deg
 from tests.test_icp import reference_demo_poses, small_K
 
 W, H = 160, 120

@@ -1,7 +1,7 @@
 """Heterogeneous scenes in one batch: SceneProjectiveStack + refine(scene_ids=).
 
 The reference runs concurrent ICPs against *different* scene frames via
-per-thread CUDA streams (README.md:15, cuda_icp/icp.cu:170). The TPU-native
+per-thread CUDA streams (README.md:15, cuda_icp/icp.cu:170). Here the
 equivalent is ONE program over a stacked (K*H*W, 8) table with a per-pose
 frame index offsetting the row gather - closing the PARITY.md "Partial" row
 with parity anchors: the stacked result must equal per-frame refinement.
@@ -9,9 +9,9 @@ with parity anchors: the stacked result must equal per-frame refinement.
 import numpy as np
 import pytest
 
-import pose_refine_tpu as prt
-from pose_refine_tpu import geometry, mesh
-from pose_refine_tpu.scene.projective import SceneProjective, SceneProjectiveStack
+import pose_refine as prt
+from pose_refine import geometry, mesh
+from pose_refine.scene.projective import SceneProjective, SceneProjectiveStack
 from tests.test_icp import reference_demo_poses
 
 W, H = 160, 120
@@ -206,31 +206,35 @@ def _nn_refiner(m, K):
 
 def test_nn_stack_query_matches_per_frame_scene(setup):
     """SceneNNStack.query_at(sid) must equal the standalone per-frame
-    SceneNN query on BOTH backends: the CPU bruteforce slice and the gated
-    flash kernel's frame windowing (interpret mode). Same kd reorder ->
-    same chunk content -> identical in-gate NN, ties included."""
+    SceneNN query: bit-identical to the brute-force scene (same kd reorder
+    -> same rows -> identical in-gate NN, ties included), and at the same
+    distance as the kd traversal's answer."""
     import jax.numpy as jnp
 
-    from pose_refine_tpu.scene.nn import SceneNN, SceneNNStack
+    from pose_refine.scene.nn import SceneNN, SceneNNStack
 
     m, K, truths, frames = setup
     rng = np.random.default_rng(7)
-    src = jnp.asarray(rng.uniform(-0.1, 0.1, (300, 3)).astype(np.float32)
-                      + np.float32([0, 0, 0.3]))
-    for backend in ("bruteforce", "flash"):
-        stack = SceneNNStack.from_depths(frames, K, backend=backend)
-        assert stack.n_scenes == 3
-        assert stack.flash_table.shape[1] == 3 * stack.frame_rows
-        for i in range(3):
+    src_np = (rng.uniform(-0.1, 0.1, (300, 3)).astype(np.float32)
+              + np.float32([0, 0, 0.3]))
+    src = jnp.asarray(src_np)
+    stack = SceneNNStack.from_depths(frames, K)
+    assert stack.n_scenes == 3
+    assert stack.points.shape[0] == 3 * stack.frame_rows
+    for i in range(3):
+        d_q, n_q, v_q = map(np.asarray, stack.query_at(jnp.int32(i))(src))
+        for backend in ("bruteforce", "kdtree"):
             single = SceneNN.from_depth(frames[i], K, backend=backend)
-            d_s, n_s, v_s = single.query(src)
-            d_q, n_q, v_q = stack.query_at(jnp.int32(i))(src)
-            np.testing.assert_array_equal(np.asarray(v_s), np.asarray(v_q))
-            d_q, d_s = np.asarray(d_q), np.asarray(d_s)
-            v = np.asarray(v_s)
-            np.testing.assert_array_equal(d_s[v], d_q[v])
-            np.testing.assert_array_equal(
-                np.asarray(n_s)[v], np.asarray(n_q)[v])
+            d_s, n_s, v_s = map(np.asarray, single.query(src))
+            np.testing.assert_array_equal(v_s, v_q)
+            v = v_s
+            if backend == "bruteforce":
+                np.testing.assert_array_equal(d_s[v], d_q[v])
+                np.testing.assert_array_equal(n_s[v], n_q[v])
+            else:
+                np.testing.assert_array_equal(
+                    ((d_s[v] - src_np[v]) ** 2).sum(-1),
+                    ((d_q[v] - src_np[v]) ** 2).sum(-1))
 
 
 def test_stack_query_clamps_out_of_range_sid(setup):
@@ -238,11 +242,10 @@ def test_stack_query_clamps_out_of_range_sid(setup):
     readback would fence refine_async), so the refine() docstring promises
     an out-of-range id CLAMPS to the nearest valid frame. Pin that for
     both stack kinds: without the clamp, jnp.take's fill mode would NaN-
-    poison every association (and the gated TPU kernel would scan past
-    its refs)."""
+    poison every association)."""
     import jax.numpy as jnp
 
-    from pose_refine_tpu.scene.nn import SceneNNStack
+    from pose_refine.scene.nn import SceneNNStack
 
     m, K, truths, frames = setup
     rng = np.random.default_rng(13)
@@ -268,7 +271,7 @@ def test_refine_nn_multiscene_matches_per_frame(setup):
     hyps, ids = _perturbed(truths, np.random.default_rng(8))
 
     ref = _nn_refiner(m, K).set_scene_depths(frames)
-    from pose_refine_tpu.scene.nn import SceneNNStack
+    from pose_refine.scene.nn import SceneNNStack
 
     assert isinstance(ref.scene, SceneNNStack)
     refined, res = ref.refine(hyps, scene_ids=ids)
@@ -325,8 +328,8 @@ def test_refine_nn_multiscene_sharded_parity(setup):
 
 def test_nn_stack_serialization_roundtrip(setup, tmp_path):
     """SceneNNStack round-trips through the one-file .npz checkpoint."""
-    from pose_refine_tpu.scene.nn import SceneNNStack
-    from pose_refine_tpu.utils import serialization
+    from pose_refine.scene.nn import SceneNNStack
+    from pose_refine.utils import serialization
 
     m, K, truths, frames = setup
     stack = SceneNNStack.from_depths(frames, K)
@@ -338,5 +341,5 @@ def test_nn_stack_serialization_roundtrip(setup, tmp_path):
     assert back.frame_rows == stack.frame_rows
     np.testing.assert_array_equal(np.asarray(back.table),
                                   np.asarray(stack.table))
-    np.testing.assert_array_equal(np.asarray(back.flash_boxes),
-                                  np.asarray(stack.flash_boxes))
+    np.testing.assert_array_equal(np.asarray(back.points),
+                                  np.asarray(stack.points))

@@ -1,7 +1,7 @@
 import numpy as np
 
-from pose_refine_tpu import geometry
-from pose_refine_tpu.ops.normals import estimate_normals
+from pose_refine import geometry
+from pose_refine.ops.normals import estimate_normals
 
 
 def numpy_normals_oracle(depth, K, r=5, diff_t=50, dist_t=2000):
@@ -86,10 +86,10 @@ def test_host_scene_arrays_match_device_path():
     device functions bit-for-bit (same int accumulators, f32 products)."""
     import jax.numpy as jnp
 
-    from pose_refine_tpu import geometry
-    from pose_refine_tpu.ops.depth_to_cloud import depth_image_to_points
-    from pose_refine_tpu.ops.normals import estimate_normals
-    from pose_refine_tpu.scene.nn import _depth_scene_arrays_host
+    from pose_refine import geometry
+    from pose_refine.ops.depth_to_cloud import depth_image_to_points
+    from pose_refine.ops.normals import estimate_normals
+    from pose_refine.scene.nn import _depth_scene_arrays_host
 
     rng = np.random.default_rng(7)
     depth = (rng.uniform(200, 1000, (48, 64)) *

@@ -1,4 +1,4 @@
-"""Open3D cross-check plumbing (VERDICT r4 #9: optional third-party leg).
+"""Open3D cross-check plumbing (the optional third-party leg).
 
 Open3D is not in this image, so the substantive cross-check
 (scripts/open3d_crosscheck.py, mirroring /root/reference/test.cpp:96-126)

@@ -2,12 +2,11 @@
 the systematic version of the reference's spot-check test style."""
 
 import numpy as np
-import pytest
 from hypothesis import given, settings, strategies as st
 
-from pose_refine_tpu import geometry
-from pose_refine_tpu.scene.kdtree import build_kdtree
-from pose_refine_tpu.scene.nn import SceneNN
+from pose_refine import geometry
+from pose_refine.scene.kdtree import build_kdtree
+from pose_refine.scene.nn import SceneNN
 
 finite_angle = st.floats(-3.0, 3.0, allow_nan=False, width=32)
 
@@ -66,13 +65,13 @@ def test_pixel_point_roundtrip(x, y, d):
 
 
 def test_viz_helpers(tmp_path):
-    from pose_refine_tpu.utils import viz
+    from pose_refine.utils import viz
 
     rng = np.random.default_rng(0)
     pts = rng.normal(size=(50, 3)).astype(np.float32)
     nrm = pts / np.linalg.norm(pts, axis=1, keepdims=True)
     viz.save_point_cloud(str(tmp_path / "c.ply"), pts, nrm)
-    from pose_refine_tpu.mesh import load_ply
+    from pose_refine.mesh import load_ply
 
     v, f = load_ply(str(tmp_path / "c.ply"))
     np.testing.assert_allclose(v, pts, atol=1e-4)
@@ -85,194 +84,8 @@ def test_viz_helpers(tmp_path):
     assert "#" in art or "o" in art
 
 
-def test_nn_flash_gated_matches_plain_within_gate():
-    """The gate-pruned flash kernel must equal plain flash-NN for every
-    query whose true NN lies within the gate, and must report an
-    out-of-gate distance whenever plain flash does (identical Scene.query
-    results either way)."""
-    import jax.numpy as jnp
-
-    from pose_refine_tpu.scene.nn_pallas import (
-        chunk_boxes, nn_flash_gated, nn_flash_packed, pack_scene,
-    )
-
-    rng = np.random.default_rng(11)
-    S = (rng.normal(size=(5000, 3)) * 0.1).astype(np.float32)
-    S = S[np.lexsort((S[:, 0], S[:, 1], S[:, 2]))]  # spatially coherent order
-    Q = (rng.normal(size=(1500, 3)) * 0.1).astype(np.float32)
-    table = pack_scene(S)
-    boxes = chunk_boxes(table)
-    gate = 0.05
-
-    i0, d0 = nn_flash_packed(Q, table, interpret=True)
-    i1, d1 = nn_flash_gated(Q, table, boxes, gate, interpret=True)
-    i0, d0, i1, d1 = map(np.asarray, (i0, d0, i1, d1))
-    inside = d0 < gate * gate
-    assert inside.any() and not inside.all()  # test covers both populations
-    np.testing.assert_array_equal(i0[inside], i1[inside])
-    np.testing.assert_array_equal(d0[inside], d1[inside])
-    assert (d1[~inside] >= gate * gate).all()
-
-
-def test_nn_flash_gated_tile_bound_pruning_stays_exact():
-    """The gated kernel's per-tile NN-distance upper bound (VERDICT r3 #8)
-    prunes chunks beyond max_q min(|q-c|+r) - adversarial checks that the
-    pruning never changes an in-gate result: clustered query tiles (max
-    pruning pressure), exact ties across distant chunks, and whole tiles
-    with no in-gate neighbor."""
-    import jax.numpy as jnp
-
-    from pose_refine_tpu.scene.nn_pallas import (
-        GQ_TILE, chunk_boxes, nn_flash_gated, nn_flash_packed, pack_scene,
-    )
-
-    rng = np.random.default_rng(23)
-    # scene: two spatially separated slabs, index-sorted so chunks are tight
-    a = rng.normal(size=(3000, 3)).astype(np.float32) * 0.05
-    b = rng.normal(size=(3000, 3)).astype(np.float32) * 0.05 + [0.5, 0.0, 0.0]
-    S = np.concatenate([a, b])
-    S = S[np.lexsort((S[:, 0], S[:, 1], S[:, 2]))]
-    # exact tie: duplicate one slab-a point into slab-b's index range
-    S[4500] = S[100]
-    table = pack_scene(S)
-    boxes = chunk_boxes(table)
-    gate = 0.06
-
-    # tile 0: tightly clustered around slab a (tile bound << gate);
-    # tile 1: around slab b; tile 2: far from everything (all out-of-gate)
-    q0 = (rng.normal(size=(GQ_TILE, 3)) * 0.01).astype(np.float32)
-    q0[7] = S[100]  # exact-tie query: smallest global index must win
-    q1 = (rng.normal(size=(GQ_TILE, 3)) * 0.01 + [0.5, 0, 0]).astype(np.float32)
-    q2 = (rng.normal(size=(GQ_TILE, 3)) * 0.01 + [0, 5.0, 0]).astype(np.float32)
-    Q = np.concatenate([q0, q1, q2])
-
-    i0, d0 = nn_flash_packed(Q, table, interpret=True)
-    i1, d1 = nn_flash_gated(Q, table, boxes, gate, interpret=True)
-    i0, d0, i1, d1 = map(np.asarray, (i0, d0, i1, d1))
-    inside = d0 < gate * gate
-    assert inside[:GQ_TILE].all() and not inside[2 * GQ_TILE:].any()
-    np.testing.assert_array_equal(i0[inside], i1[inside])
-    np.testing.assert_array_equal(d0[inside], d1[inside])
-    assert i0[7] == min(100, 4500) == i1[7]  # tie kept the smaller index
-    assert (d1[~inside] >= gate * gate).all()
-
-
-def test_nn_flash_gated_tile_and_ball_sizes_exact():
-    """q_tile / ub_ball are pure performance knobs (prune-rate vs fixed
-    cost): every combination must reproduce plain flash-NN exactly for
-    in-gate queries - incl. non-default tiles smaller and larger than the
-    production GQ_TILE and coarse/fine bounding balls."""
-    from pose_refine_tpu.scene.nn_pallas import (
-        chunk_boxes, nn_flash_gated, nn_flash_packed, pack_scene,
-    )
-
-    rng = np.random.default_rng(47)
-    S = (rng.normal(size=(4000, 3)) * 0.1).astype(np.float32)
-    S = S[np.lexsort((S[:, 0], S[:, 1], S[:, 2]))]
-    Q = (rng.normal(size=(1100, 3)) * 0.1).astype(np.float32)  # pads every tile
-    table = pack_scene(S)
-    boxes = chunk_boxes(table)
-    gate = 0.05
-
-    i0, d0 = nn_flash_packed(Q, table, interpret=True)
-    i0, d0 = np.asarray(i0), np.asarray(d0)
-    inside = d0 < gate * gate
-    assert inside.any() and not inside.all()
-    for q_tile in (128, 256, 512):
-        for ub_ball in (32, 128):
-            i1, d1 = nn_flash_gated(Q, table, boxes, gate, interpret=True,
-                                    q_tile=q_tile, ub_ball=ub_ball)
-            i1, d1 = np.asarray(i1), np.asarray(d1)
-            np.testing.assert_array_equal(i0[inside], i1[inside])
-            np.testing.assert_array_equal(d0[inside], d1[inside])
-            assert (d1[~inside] >= gate * gate).all()
-    # sub-tile pruning bands (incl. band == tile and the 8-row minimum)
-    for sub_tile in (8, 64, 128, 512):
-        i1, d1 = nn_flash_gated(Q, table, boxes, gate, interpret=True,
-                                sub_tile=sub_tile)
-        i1, d1 = np.asarray(i1), np.asarray(d1)
-        np.testing.assert_array_equal(i0[inside], i1[inside])
-        np.testing.assert_array_equal(d0[inside], d1[inside])
-        assert (d1[~inside] >= gate * gate).all()
-    with pytest.raises(ValueError, match="ub_ball"):
-        nn_flash_gated(Q, table, boxes, gate, interpret=True, ub_ball=48)
-    with pytest.raises(ValueError, match="sub_tile"):
-        nn_flash_gated(Q, table, boxes, gate, interpret=True, sub_tile=96)
-    with pytest.raises(ValueError, match="sub_tile"):
-        nn_flash_gated(Q, table, boxes, gate, interpret=True, sub_tile=4)
-
-
-def test_nn_flash_gated_sub_tile_stacked_frames_exact():
-    """Sub-tile pruning bands must compose with the stacked-frame windowing
-    (SceneNNStack): for each frame id, the banded kernel on the stacked
-    table must equal plain flash-NN on that frame's own table, in-gate,
-    ties included."""
-    from pose_refine_tpu.scene.nn_pallas import (
-        S_CHUNK, chunk_boxes, nn_flash_gated, nn_flash_packed, pack_scene,
-    )
-
-    rng = np.random.default_rng(61)
-    rows = 1024  # equal per-frame width (S_CHUNK multiple)
-    frames = []
-    for k in range(2):
-        S = (rng.normal(size=(rows, 3)) * 0.08 + k * 0.3).astype(np.float32)
-        S = S[np.lexsort((S[:, 0], S[:, 1], S[:, 2]))]
-        frames.append(S)
-    tables = [pack_scene(S) for S in frames]
-    stacked = np.concatenate([np.asarray(t) for t in tables], axis=1)
-    boxes = np.concatenate([np.asarray(chunk_boxes(t)) for t in tables])
-    gate = 0.05
-    for k, S in enumerate(frames):
-        Q = (S[rng.integers(0, rows, 600)]
-             + rng.normal(0, 0.01, (600, 3))).astype(np.float32)
-        i0, d0 = nn_flash_packed(Q, tables[k], interpret=True)
-        i0, d0 = np.asarray(i0), np.asarray(d0)
-        inside = d0 < gate * gate
-        assert inside.any()
-        for sub_tile in (None, 64, 128):
-            i1, d1 = nn_flash_gated(
-                Q, stacked, boxes, gate, interpret=True, sub_tile=sub_tile,
-                frame_id=k, frames=2)
-            i1, d1 = np.asarray(i1), np.asarray(d1)
-            # stacked indices are frame-local + k*rows
-            np.testing.assert_array_equal(i0[inside] + k * rows, i1[inside])
-            np.testing.assert_array_equal(d0[inside], d1[inside])
-            assert (d1[~inside] >= gate * gate).all()
-
-
-def test_nn_flash_gated_group_merge_path_exact():
-    """Very large scenes gate GROUPS of chunks (SMEM box rows are capped);
-    the merge must stay exact with AND without the tile bound. Covered at
-    small scale by lowering the internal row cap (group = 10 here)."""
-    import jax.numpy as jnp
-
-    from pose_refine_tpu.scene.nn_pallas import (
-        chunk_boxes, nn_flash_gated, nn_flash_packed, pack_scene,
-    )
-
-    rng = np.random.default_rng(31)
-    S = (rng.normal(size=(5000, 3)) * 0.08).astype(np.float32)
-    S = S[np.lexsort((S[:, 0], S[:, 1], S[:, 2]))]
-    Q = (rng.normal(size=(1024, 3)) * 0.08).astype(np.float32)
-    table = pack_scene(S)
-    boxes = chunk_boxes(table)
-    gate = 0.05
-
-    i0, d0 = nn_flash_packed(Q, table, interpret=True)
-    inside = np.asarray(d0) < gate * gate
-    assert inside.any()
-    for tb in (True, False):
-        i1, d1 = nn_flash_gated(Q, table, boxes, gate, interpret=True,
-                                use_tile_bound=tb, _max_box_rows=4)
-        np.testing.assert_array_equal(np.asarray(i0)[inside],
-                                      np.asarray(i1)[inside])
-        np.testing.assert_array_equal(np.asarray(d0)[inside],
-                                      np.asarray(d1)[inside])
-        assert (np.asarray(d1)[~inside] >= gate * gate).all()
-
-
 def test_grid_morton_perm_is_permutation_and_local():
-    from pose_refine_tpu.scene.nn import _grid_morton_perm
+    from pose_refine.scene.nn import _grid_morton_perm
 
     h, w = 37, 53  # non-power-of-two dims
     perm = _grid_morton_perm(h, w)
@@ -284,15 +97,15 @@ def test_grid_morton_perm_is_permutation_and_local():
 
 
 def test_scene_from_depth_device_matches_host_build():
-    """The fully-on-device NN scene (grid table + far-filled invalid
+    """The fully-on-device NN scene (grid table + far-parked invalid
     pixels + static Morton order) must answer Scene.query identically to
     the host build (compacted cloud + kd reorder) for every query: same
     dst point, same normal, same validity."""
     import jax.numpy as jnp
 
-    from pose_refine_tpu import geometry, mesh
-    from pose_refine_tpu.ops import rasterize as rz
-    from pose_refine_tpu.scene.nn import SceneNN
+    from pose_refine import geometry, mesh
+    from pose_refine.ops import rasterize as rz
+    from pose_refine.scene.nn import SceneNN
 
     W, H = 160, 120
     K = geometry.LINEMOD_K.copy()
@@ -324,61 +137,13 @@ def test_scene_from_depth_device_matches_host_build():
         np.testing.assert_allclose(nh[vh], nd[vd], atol=1e-7)
 
 
-def test_scene_from_depth_device_chunks_stay_prunable():
-    """Invalid pixels in a MIXED chunk must be parked at the chunk's
-    first valid point, not at the 1e6 far point: a single far row blows
-    that chunk's bbox/ball to 1e6 m and defeats the gated kernel's
-    high-side pruning on exactly the hole-y frames track() feeds it
-    (all-invalid chunks keep the far park - lo == 1e6 always prunes)."""
-    import jax.numpy as jnp
-
-    from pose_refine_tpu import geometry
-    from pose_refine_tpu.scene.nn import SceneNN
-    from pose_refine_tpu.scene.nn_pallas import S_CHUNK
-
-    K = geometry.LINEMOD_K.copy()
-    K[:2] *= 0.25
-    rng = np.random.default_rng(9)
-    # ~40% holes: under the Morton perm most chunks are mixed
-    depth = (rng.uniform(250, 350, (64, 96)) *
-             (rng.random((64, 96)) > 0.4)).astype(np.int32)
-    scene = SceneNN.from_depth_device(depth, K)
-
-    pts = np.asarray(scene.points)
-    n_rows = pts.shape[0]
-    nc = n_rows // S_CHUNK
-    chunks = pts[: nc * S_CHUNK].reshape(nc, S_CHUNK, 3)
-    has_real = (np.abs(chunks) < 1.0e5).all(axis=2).any(axis=1)
-    hi = chunks.max(axis=1)
-    # every chunk with any valid point has a TIGHT bbox (< 1 m extent
-    # here); chunks without stay parked far (and therefore prune too)
-    assert has_real.any()
-    assert (hi[has_real] < 1.0).all(), hi[has_real].max()
-    assert (chunks[~has_real] == 1.0e6).all()
-    # phantom rows are bitwise DUPLICATES of their chunk's anchor (the
-    # jnp/numpy builds differ by ~1 ULP, so compare within the device
-    # build only): the number of distinct (point, normal) rows cannot
-    # exceed the number of valid depth pixels, and querying any non-far
-    # row's position associates at distance zero (real geometry)
-    import jax.numpy as jnp_
-
-    nrm = np.asarray(scene.normals)
-    near = (np.abs(pts) < 1.0e5).all(axis=1)
-    distinct = {tuple(r.tolist()) for r in np.c_[pts, nrm][near]}
-    assert len(distinct) <= int((depth > 0).sum())
-    probe = pts[near][:256]
-    d, _, v = scene.query(jnp_.asarray(probe))
-    assert np.asarray(v).all()
-    np.testing.assert_array_equal(np.asarray(d), probe)
-
-
 def test_scene_from_depth_device_stride():
     """stride=2 subsamples the scene grid (the device analog of voxel
     downsampling): queries at kept pixels still associate exactly."""
     import jax.numpy as jnp
 
-    from pose_refine_tpu import geometry
-    from pose_refine_tpu.scene.nn import SceneNN
+    from pose_refine import geometry
+    from pose_refine.scene.nn import SceneNN
 
     K = geometry.LINEMOD_K.copy()
     K[:2] *= 0.25
@@ -393,18 +158,3 @@ def test_scene_from_depth_device_stride():
     kept = kept[kept[:, 0] < 1e5][:100]  # valid entries only
     _, _, v = half.query(jnp.asarray(kept))
     assert np.asarray(v).all()
-
-
-def test_numpy_flash_pack_matches_jnp():
-    """The host-side numpy pack/boxes (from_cloud's no-device-dispatch
-    path) must equal the jnp versions bit-for-bit."""
-    from pose_refine_tpu.scene.nn import _chunk_boxes_np, _pack_scene_np
-    from pose_refine_tpu.scene.nn_pallas import chunk_boxes, pack_scene
-
-    rng = np.random.default_rng(17)
-    for n in (1, 127, 128, 1000):
-        pts = rng.normal(size=(n, 3)).astype(np.float32) * 0.2
-        tn = _pack_scene_np(pts)
-        tj = np.asarray(pack_scene(pts))
-        np.testing.assert_array_equal(tn, tj)
-        np.testing.assert_array_equal(_chunk_boxes_np(tn), np.asarray(chunk_boxes(tj)))

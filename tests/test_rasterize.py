@@ -1,9 +1,9 @@
 import numpy as np
 import pytest
 
-from pose_refine_tpu import geometry, mesh
-import pose_refine_tpu.ops.rasterize as R  # the module (ops exports a same-named function)
-from pose_refine_tpu.utils import oracle
+from pose_refine import geometry, mesh
+import pose_refine.ops.rasterize as R  # the module (ops exports a same-named function)
+from pose_refine.utils import oracle
 
 
 W, H = 160, 120
@@ -114,7 +114,7 @@ def test_depth_values_front_surface(scene_setup):
 
 
 def test_converters(scene_setup):
-    from pose_refine_tpu.ops import convert
+    from pose_refine.ops import convert
 
     m, K, proj, poses = scene_setup
     raw = R.rasterize_dense(m.tris, poses, W, H, proj)
@@ -145,11 +145,12 @@ def test_reference_mesh_scatter_parity():
 
 
 class TestPallas:
-    """Pallas kernel vs the dense oracle (interpret mode on CPU; the same
-    kernel is exercised on real TPU by scripts/bench_raster.py)."""
+    """The GPU raster kernel vs the dense oracle, in the Pallas interpreter
+    (the compiled kernel is checked on the card by chip_smoke.py and the
+    chip-marked tests below)."""
 
     def test_matches_dense(self, scene_setup):
-        from pose_refine_tpu.ops.rasterize_pallas import rasterize_pallas
+        from pose_refine.ops.rasterize_pallas import rasterize_pallas
 
         m, K, proj, poses = scene_setup
         tris = m.tris[mesh.morton_order(m.tris)]
@@ -158,7 +159,7 @@ class TestPallas:
         assert (got != want).mean() < 1e-4
 
     def test_roi(self, scene_setup):
-        from pose_refine_tpu.ops.rasterize_pallas import rasterize_pallas
+        from pose_refine.ops.rasterize_pallas import rasterize_pallas
 
         m, K, proj, poses = scene_setup
         tris = m.tris[mesh.morton_order(m.tris)]
@@ -170,7 +171,7 @@ class TestPallas:
 
     def test_unordered_triangles_still_correct(self, scene_setup):
         # Morton order is a perf optimization, never a correctness requirement
-        from pose_refine_tpu.ops.rasterize_pallas import rasterize_pallas
+        from pose_refine.ops.rasterize_pallas import rasterize_pallas
 
         m, K, proj, poses = scene_setup
         want = np.asarray(R.rasterize_dense(m.tris, poses[:1], W, H, proj))
@@ -178,7 +179,7 @@ class TestPallas:
         assert (got != want).mean() < 1e-4
 
     def test_offscreen_empty(self):
-        from pose_refine_tpu.ops.rasterize_pallas import rasterize_pallas
+        from pose_refine.ops.rasterize_pallas import rasterize_pallas
 
         m = mesh.make_icosphere(radius=10.0, subdivisions=1)
         proj = geometry.compute_proj(small_K(), W, H)
@@ -195,51 +196,12 @@ def test_morton_order_is_permutation():
     assert sorted(perm.tolist()) == list(range(m.n_tris))
 
 
-def test_pallas_tile16_variant(scene_setup=None):
-    # tile16 is kept as a measured variant (slower than tile32 on v5e:
-    # subtile-scan overhead beats the saved compute - PERF_NOTES.md)
-    from pose_refine_tpu.ops.rasterize_pallas import rasterize_pallas
-
-    rng = np.random.default_rng(9)
-    m = mesh.make_icosphere(radius=40.0, subdivisions=2)
-    proj = geometry.compute_proj(small_K(), W, H)
-    poses = make_poses(2, rng)
-    want = np.asarray(R.rasterize_dense(m.tris, poses, W, H, proj))
-    got = np.asarray(rasterize_pallas(m.tris, poses, W, H, proj, interpret=True, variant="tile16"))
-    assert (got != want).mean() < 1e-4
-
-
-@pytest.mark.slow
-def test_pallas_variants_agree():
-    """Every subtile geometry comes from ONE _make_kernel body; the three
-    instantiations must produce identical images (they share all arithmetic
-    - only the pixel packing differs)."""
-    from pose_refine_tpu.ops.rasterize_pallas import VARIANTS, rasterize_pallas
-
-    rng = np.random.default_rng(10)
-    m = mesh.make_bumpy_sphere(radius=40.0, subdivisions=3)
-    proj = geometry.compute_proj(small_K(), W, H)
-    poses = make_poses(2, rng)
-    tris = m.tris[mesh.morton_order(m.tris)]
-    roi = (32, 16, 96, 64)
-    outs = {
-        v: np.asarray(
-            rasterize_pallas(tris, poses, W, H, proj, roi=roi, interpret=True, variant=v)
-        )
-        for v in VARIANTS
-    }
-    ref = outs.pop("tile32")
-    assert ref.shape == (2, 64, 96)
-    for v, got in outs.items():
-        np.testing.assert_array_equal(got, ref, err_msg=f"variant {v}")
-
-
 def test_obj06_cpp_baseline_bit_parity():
     """Full-frame obj_06 @640x480: the jitted scatter rasterizer and the
     native C++ baseline implement the same arithmetic - expect bit equality
     (the reference asserted exact CPU==CUDA equality the same way,
     cuda_renderer/test.cpp:94-106)."""
-    from pose_refine_tpu import native
+    from pose_refine import native
 
     path = mesh.find_reference_ply()
     if path is None:
@@ -258,7 +220,7 @@ def test_obj06_cpp_baseline_bit_parity():
 
 
 def test_screen_fields_bitwise_equals_screen_triangles():
-    """The lane-major vertex transform (used by the Pallas path) must be
+    """The field-layout vertex transform (used by the kernel path) must be
     BIT-IDENTICAL to screen_triangles (used by the dense/scatter paths and
     the C++-baseline parity tests) - an ulp shift would flip edge-pixel
     coverage between backends."""
@@ -289,7 +251,7 @@ def test_screen_fields_bitwise_equals_screen_triangles():
 def test_per_pose_triangle_tables():
     """(N, T, 3, 3) per-pose triangle tables (multi-model batches) must
     rasterize identically to rendering each pose with its own mesh."""
-    from pose_refine_tpu.ops.rasterize_pallas import rasterize_pallas
+    from pose_refine.ops.rasterize_pallas import rasterize_pallas
 
     rng = np.random.default_rng(12)
     m1 = mesh.make_bumpy_sphere(radius=50.0, subdivisions=2)
@@ -310,3 +272,125 @@ def test_per_pose_triangle_tables():
         two = np.asarray(fn(t2, poses[1:], W, H, proj))
         np.testing.assert_array_equal(multi[0], one[0])
         np.testing.assert_array_equal(multi[1], two[0])
+
+
+def _big_quad_scene():
+    """A 120x80 mm quad 200 mm from the camera (bbox ~90 px, far wider than
+    the scatter path's 32 px window) in front of a small sphere."""
+    quad = np.array([[[-60, -40, 0], [60, -40, 0], [60, 40, 0]],
+                     [[-60, -40, 0], [60, 40, 0], [-60, 40, 0]]], np.float32)
+    m = mesh.make_icosphere(radius=10.0, subdivisions=1)
+    tris = np.concatenate([m.tris, quad]).astype(np.float32)
+    proj = geometry.compute_proj(small_K(), W, H)
+    poses = np.stack([
+        np.asarray(geometry.pose_from_Rt(
+            np.asarray(geometry.euler_to_rotation(np.float32(a))),
+            np.array([5, -3, 200], np.float32)))
+        for a in ([0, 0, 0], [0.3, -0.2, 0.5])])
+    return tris, poses, proj
+
+
+@pytest.mark.parametrize("path", ["scatter", "scatter_w8", "kernel", "kernel_roi"])
+def test_large_triangles_exact(path):
+    """No size cap: triangles whose bbox spans many windows / loop
+    iterations render exactly like the dense oracle on every path."""
+    tris, poses, proj = _big_quad_scene()
+    assert R.max_bbox_extent(tris, poses, W, H, proj) > 64
+    roi = (9, 7, 100, 90) if path == "kernel_roi" else (0, 0, 0, 0)
+    want = np.asarray(R.rasterize_dense(tris, poses, W, H, proj, roi=roi))
+    if path.startswith("scatter"):
+        window = 8 if path == "scatter_w8" else 32
+        got = R.rasterize_scatter(tris, poses, W, H, proj, roi=roi, window=window)
+    else:
+        from pose_refine.ops.rasterize_pallas import rasterize_pallas
+
+        got = rasterize_pallas(tris, poses, W, H, proj, roi=roi, interpret=True)
+    got = np.asarray(got)
+    assert (want > 0).mean() > 0.2
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_tris", [1, 127, 129])
+def test_kernel_pads_triangle_blocks(n_tris):
+    """Triangle counts that do not fill the kernel's 128-lane blocks: the
+    padded lanes write nothing."""
+    from pose_refine.ops.rasterize_pallas import rasterize_pallas
+
+    m = mesh.make_bumpy_sphere(radius=40.0, subdivisions=3)
+    tris = m.tris[mesh.morton_order(m.tris)][:n_tris]
+    proj = geometry.compute_proj(small_K(), W, H)
+    pose = np.asarray(geometry.pose_from_Rt(
+        np.eye(3, dtype=np.float32), np.array([0, 0, 300], np.float32)))[None]
+    want = np.asarray(R.rasterize_dense(tris, pose, W, H, proj))
+    got = np.asarray(rasterize_pallas(tris, pose, W, H, proj, interpret=True))
+    assert got.shape == (1, H, W)
+    assert (got != want).mean() < 1e-4
+
+
+def test_kernel_setup_culls_degenerate_and_offscreen():
+    """_triangle_setup gives zero-area, off-screen and padded triangles an
+    empty pixel loop (area 0) and every visible one a non-empty loop."""
+    from pose_refine.ops.rasterize_pallas import BLOCK, _triangle_setup
+
+    proj = geometry.compute_proj(small_K(), W, H)
+    pose = np.asarray(geometry.pose_from_Rt(
+        np.eye(3, dtype=np.float32), np.array([0, 0, 300], np.float32)))[None]
+    tris = np.array([
+        [[0, 0, 0], [10, 0, 0], [0, 10, 0]],          # visible
+        [[0, 0, 0], [10, 0, 0], [20, 0, 0]],          # zero area
+        [[4000, 0, 0], [4010, 0, 0], [4000, 10, 0]],  # off-screen
+    ], np.float32)
+    coef, box = _triangle_setup(tris, pose, proj, W, H, (0, 0, 0, 0))
+    assert coef.shape == (1, 16, BLOCK) and box.shape == (1, 4, BLOCK)
+    area = np.asarray(box)[0, 3]
+    assert area[0] > 0
+    assert (area[1:] == 0).all()
+    assert np.isfinite(np.asarray(coef)).all()
+
+
+def test_kernel_rejects_int32_index_overflow():
+    from pose_refine.ops.rasterize_pallas import rasterize_pallas
+
+    m = mesh.make_icosphere(radius=10.0, subdivisions=0)
+    poses = np.tile(np.eye(4, dtype=np.float32), (7000, 1, 1))
+    with pytest.raises(ValueError, match="int32"):
+        rasterize_pallas(m.tris, poses, 640, 480,
+                         geometry.compute_proj(geometry.LINEMOD_K, 640, 480),
+                         interpret=True)
+
+
+def test_render_backend_dispatch():
+    m = mesh.make_icosphere(radius=30.0, subdivisions=1)
+    proj = geometry.compute_proj(small_K(), W, H)
+    pose = np.asarray(geometry.pose_from_Rt(
+        np.eye(3, dtype=np.float32), np.array([0, 0, 300], np.float32)))[None]
+    want = np.asarray(R.rasterize_dense(m.tris, pose, W, H, proj))
+    got = np.asarray(R.render(m.tris, pose, W, H, proj, backend="pallas",
+                              interpret=True))
+    assert (got != want).mean() < 1e-4
+    with pytest.raises(ValueError, match="unknown rasterize backend"):
+        R.render(m.tris, pose, W, H, proj, backend="tile32")
+
+
+@pytest.mark.chip
+def test_compiled_kernel_matches_dense_on_gpu(gpu):
+    """The kernel as compiled for the card (no interpreter) against the
+    oracles at a real frame size: XLA's scatter path on the card (equal to
+    the dense oracle by the CPU tests above), and rasterize_dense on the
+    CPU device for one pose (its full-frame GPU compile takes minutes)."""
+    import jax
+
+    from pose_refine.ops.rasterize_pallas import rasterize_pallas
+
+    m = mesh.make_bumpy_sphere(radius=50.0, subdivisions=4)
+    tris = m.tris[mesh.morton_order(m.tris)]
+    K = geometry.LINEMOD_K
+    proj = geometry.compute_proj(K, 640, 480)
+    poses = make_poses(8, np.random.default_rng(5))
+    got = np.asarray(rasterize_pallas(tris, poses, 640, 480, proj))
+    want = np.asarray(R.rasterize_scatter(tris, poses, 640, 480, proj))
+    assert (want > 0).any()
+    assert (got != want).mean() <= 1e-4
+    with jax.default_device(jax.devices("cpu")[0]):
+        dense = np.asarray(R.rasterize_dense(tris, poses[:1], 640, 480, proj))
+    assert (got[:1] != dense).mean() <= 1e-4

@@ -1,4 +1,4 @@
-"""Second real-shape fixture: the elongated thin L-bracket (VERDICT r4 #6).
+"""Second real-shape fixture: the elongated thin L-bracket.
 
 Every auto-tuning heuristic (window = extent * 1.15, max_points * 1.3, ROI,
 decimation dominance, tile choice) was tuned and quality-gated on obj_06 +
@@ -14,8 +14,8 @@ import os
 import numpy as np
 import pytest
 
-import pose_refine_tpu as prt
-from pose_refine_tpu import geometry, mesh
+import pose_refine as prt
+from pose_refine import geometry, mesh
 from tests.test_icp import reference_demo_poses
 
 W, H = 160, 120
@@ -58,7 +58,7 @@ def test_bracket_fixture_matches_generator(setup):
 
 def test_bracket_recovery_auto_knobs(setup):
     """The acceptance recipe with window='auto'/max_points='auto': the
-    elongated extent must not break the sizing formulas (VERDICT r4 #6)."""
+    elongated extent must not break the sizing formulas."""
     m, K, pose1, pose2, scene_depth = setup
     refiner = prt.PoseRefiner(
         m, K=K, width=W, height=H, window="auto", max_points="auto",
@@ -96,7 +96,7 @@ def test_bracket_recovery_nn_scene(setup):
 @pytest.mark.slow
 @pytest.mark.xfail(
     strict=True,
-    reason="round-5 OPEN finding (VERDICT r4 #6 vindicated): decimate_mm=4 "
+    reason="open finding: decimate_mm=4 "
     "breaks bracket recovery (13.8 deg) even though the decimated render "
     "differs by only 0.27 mm MAD / 2 silhouette px - under investigation",
 )

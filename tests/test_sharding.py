@@ -2,9 +2,9 @@ import jax
 import numpy as np
 import pytest
 
-import pose_refine_tpu as prt
-from pose_refine_tpu import geometry, mesh
-from pose_refine_tpu.parallel import make_mesh, refine_poses_sharded, shard_pose_batch
+import pose_refine as prt
+from pose_refine import geometry, mesh
+from pose_refine.parallel import make_mesh, refine_poses_sharded, shard_pose_batch
 from tests.test_icp import reference_demo_poses
 
 W, H = 160, 120
@@ -43,8 +43,8 @@ def test_sharded_refine_matches_single_device():
     # the result is actually sharded over the pose axis
     assert len(refined_sh.sharding.device_set) == 8
 
-    from pose_refine_tpu.pipeline import refine_poses_jit
-    import pose_refine_tpu.icp as icp_mod
+    from pose_refine.pipeline import refine_poses_jit
+    import pose_refine.icp as icp_mod
 
     refined_1, res_1 = refine_poses_jit(
         tris, poses, scene, proj, K, width=W, height=H, max_points=4096,
@@ -109,7 +109,7 @@ def test_poserefiner_class_sharded_matches_single_device(ndev):
 @pytest.mark.slow
 @pytest.mark.parametrize("scene", ["nn_bruteforce", "nn"])
 def test_poserefiner_class_sharded_nn_scene_matches_single(scene):
-    """NN scenes (flash kernel AND kd traversal) through the sharded class
+    """NN scenes (brute-force scan AND kd traversal) through the sharded class
     path == single-device: the scene table/tree replicates over the mesh
     while the pose batch shards (same one-scene-many-poses layout as
     projective; pcd_scene.h's device struct is the reference analogue).
@@ -197,7 +197,7 @@ def test_multimodel_class_sharded_matches_single_device():
 
 
 def test_pad_to_devices_roundtrip():
-    from pose_refine_tpu.parallel import pad_to_devices, unpad_results
+    from pose_refine.parallel import pad_to_devices, unpad_results
 
     poses = np.random.default_rng(0).normal(size=(5, 4, 4)).astype(np.float32)
     tris = np.random.default_rng(1).normal(size=(5, 7, 3, 3)).astype(np.float32)
@@ -250,8 +250,8 @@ def test_sharded_per_pose_tris():
     )
     assert len(refined_sh.sharding.device_set) == 8
 
-    from pose_refine_tpu.pipeline import refine_poses_jit
-    import pose_refine_tpu.icp as icp_mod
+    from pose_refine.pipeline import refine_poses_jit
+    import pose_refine.icp as icp_mod
 
     refined_1, res_1 = refine_poses_jit(
         tris_pp, poses, scene, proj, K, width=W, height=H, max_points=4096,

@@ -1,5 +1,5 @@
-"""Calibration property-test for the reported pose uncertainty (VERDICT r3
-next-round item #7): render perturbed frames, refine, and assert the
+"""Calibration property-test for the reported pose uncertainty: render
+perturbed frames, refine, and assert the
 empirical error distribution is COVERED by the reported covariances - NEES
 (e^T R^-1 e, ~chi2_6 when R is calibrated) must stay inside loose chi-square
 bands. Pins the round-4 calibration (icp.RENDER_COV_INFLATION sigma2 floor +
@@ -13,10 +13,10 @@ Full sweep with per-DOF diagnostics: scripts/uncertainty_calibration_study.py.
 import numpy as np
 import pytest
 
-import pose_refine_tpu as prt
-from pose_refine_tpu import geometry, icp, mesh
-from pose_refine_tpu.tracking import _ensemble_cov
-from pose_refine_tpu.utils import fusion
+import pose_refine as prt
+from pose_refine import geometry, icp, mesh
+from pose_refine.tracking import _ensemble_cov
+from pose_refine.utils import fusion
 
 W, H = 160, 120
 N_FRAMES = 8

@@ -2,12 +2,12 @@ import os
 
 import numpy as np
 
-import pose_refine_tpu as prt
-from pose_refine_tpu import geometry
-from pose_refine_tpu.scene.kdtree import build_kdtree
-from pose_refine_tpu.scene.nn import SceneNN
-from pose_refine_tpu.scene.projective import SceneProjective
-from pose_refine_tpu.utils import serialization
+import pose_refine as prt
+from pose_refine import geometry
+from pose_refine.scene.kdtree import build_kdtree
+from pose_refine.scene.nn import SceneNN
+from pose_refine.scene.projective import SceneProjective
+from pose_refine.utils import serialization
 
 
 def _cloud(rng, n=500):
@@ -70,7 +70,7 @@ def test_result_roundtrip(tmp_path):
 
 
 def test_pose_tracker_roundtrip(tmp_path, rng):
-    from pose_refine_tpu.utils.fusion import PoseTracker, se3_exp
+    from pose_refine.utils.fusion import PoseTracker, se3_exp
 
     pose = np.asarray(se3_exp(rng.normal(0, 0.1, 6)), np.float64)
     pose[:3, 3] = [10.0, -20.0, 500.0]
@@ -97,7 +97,7 @@ def test_pose_tracker_roundtrip(tmp_path, rng):
 
 
 def test_step_timer():
-    from pose_refine_tpu.utils.profiling import StepTimer
+    from pose_refine.utils.profiling import StepTimer
 
     t = StepTimer()
     for _ in range(3):
@@ -109,7 +109,7 @@ def test_step_timer():
 def test_device_memory_stats():
     """print_cuda_memory_usage analog (renderer.cu:52-69): returns the
     backend's allocator dict or an honest None; the log line never raises."""
-    from pose_refine_tpu.utils.profiling import device_memory_stats, log_memory_usage
+    from pose_refine.utils.profiling import device_memory_stats, log_memory_usage
 
     stats = device_memory_stats()
     assert stats is None or isinstance(stats, dict)
@@ -120,30 +120,31 @@ def test_device_memory_stats():
 
 
 def test_sync_fused_probe():
-    """sync() must fence arbitrary pytrees with one probe and return the
-    tree unchanged (values intact, non-array leaves passed through)."""
+    """The timing fence (utils.timer: jax.block_until_ready) takes arbitrary
+    pytrees: values come back intact, non-array leaves pass through, and
+    time_jitted times a pytree-returning function."""
     import jax.numpy as jnp
 
-    from pose_refine_tpu.utils.sync import sync
+    from pose_refine.utils.timer import sync, time_jitted
 
     a = jnp.arange(12.0).reshape(3, 4)
     b = jnp.ones(5, jnp.int32)
     tree = (a, {"b": b, "flag": jnp.zeros((), bool), "meta": "host"}, 7)
     out = sync(tree)
-    assert out is tree
     assert float(np.asarray(out[0]).sum()) == 66.0
     assert int(np.asarray(out[1]["b"]).sum()) == 5
+    assert out[1]["meta"] == "host" and out[2] == 7
     assert sync(()) == ()  # no-array tree is a no-op
-    assert sync("x") == "x"
+    assert time_jitted(lambda: tree, warmup=1, iters=3) >= 0.0
 
 
 def test_device_scene_roundtrip(tmp_path):
-    """Serialization of a device-built SceneNN (stubbed kd arrays, flash
-    tables) - serving pipelines may persist per-frame scenes."""
+    """Serialization of a device-built SceneNN (stubbed kd arrays) -
+    serving pipelines may persist per-frame scenes."""
     import jax.numpy as jnp
 
-    from pose_refine_tpu import geometry
-    from pose_refine_tpu.scene.nn import SceneNN
+    from pose_refine import geometry
+    from pose_refine.scene.nn import SceneNN
 
     rng = np.random.default_rng(9)
     depth = (rng.uniform(250, 350, (32, 48)) *
@@ -170,7 +171,7 @@ def test_load_backfills_missing_leaf_bboxes(tmp_path):
     import jax
     import jax.numpy as jnp
 
-    from pose_refine_tpu.scene.nn import SceneNN, _nn_kdtree
+    from pose_refine.scene.nn import SceneNN, _nn_kdtree
 
     rng = np.random.default_rng(4)
     pts = rng.uniform(0, 0.3, (2000, 3)).astype(np.float32)
